@@ -1,8 +1,9 @@
-"""deepfbsdejsolvers_tpu — a TPU-native JAX framework for deep FBSDE solvers with jumps.
+"""deepfbsdejsolvers_tpu — a JAX framework for deep FBSDE solvers with jumps.
 
 A from-scratch rebuild of the capability surface of the TF research code
 ``ZakariaBensaid/DeepFBSDEJSolvers`` (companion code of "Deep Learning Algorithms
-for FBSDEs with Jumps", Alasseur–Bensaid–Dumitrescu–Warin), re-designed TPU-first:
+for FBSDEs with Jumps", Alasseur–Bensaid–Dumitrescu–Warin), re-designed for
+compiled accelerator execution:
 
 * math models are pure, stateless dataclasses with precomputed device tables
   (Merton power-series pricer, VG Carr–Madan FFT price tables, MFG mean-field
@@ -13,7 +14,7 @@ for FBSDEs with Jumps", Alasseur–Bensaid–Dumitrescu–Warin), re-designed TP
   reference's 5000-sample Monte-Carlo sweep or by deterministic Gauss-Hermite /
   generalized Gauss-Laguerre quadrature over the known jump law;
 * training runs as a device-side ``lax.scan`` over Adam steps (one host sync per
-  outer epoch) and scales over chips with ``shard_map`` + ``psum`` over ICI.
+  outer epoch) and scales over devices with ``shard_map`` + ``psum``.
 
 See SURVEY.md for the layer map of the reference and the build plan.
 """

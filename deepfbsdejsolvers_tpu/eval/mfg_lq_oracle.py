@@ -3,7 +3,7 @@
 The smart-grid MFG stack had no independent accuracy oracle: pricing has
 closed-form/FFT prices, but MFG correctness rested on cross-method
 agreement plus PoA >= 1 — both *relative* checks that five consistently
-wrong solvers would pass together (VERDICT r4 missing #2).
+wrong solvers would pass together.
 
 This module closes that gap.  With the jump-window terms off
 (``f0 = f1 = 0``) the Pontryagin controls (MFGModel.py:83-89) lose their

@@ -17,7 +17,7 @@ semantics the scripts clearly intend:
   (:100-101), the α-target (the missing ``computeTarget``), and
   PoA = cost_MFG / cost_MFCagg (mainMFGPoA.py:332-334).
 
-TPU-native: the replay is one ``lax.scan`` over the frozen arrays — no
+Execution: the replay is one ``lax.scan`` over the frozen arrays — no
 per-step host round-trips (the reference drops to numpy every step).
 """
 

@@ -74,15 +74,9 @@ def _add_pricing_flags(p: argparse.ArgumentParser, lr_y0, lr_loc, lr_reg,
                    choices=["quadrature", "mc"],
                    help="inner jump-expectation mode (reference = mc 5000)")
     p.add_argument("--nMC", type=int, default=5000)
-    p.add_argument("--sweepImpl", type=str, default=None,
-                   choices=["xla", "pallas"],
-                   help="compensator sweep implementation; 'pallas' is the "
-                        "fused MXU kernel (fastest direct-sweep path: 2.6x on "
-                        "quadrature, 4.5x on MC-5000). Default: pallas on "
-                        "TPU, xla elsewhere — same policy as bench.py")
     p.add_argument("--dataParallel", action="store_true",
-                   help="shard the path batch over all visible chips "
-                        "(1-D data mesh, gradient all-reduce over ICI); "
+                   help="shard the path batch over all visible devices "
+                        "(1-D data mesh, gradient all-reduce across it); "
                         "batchSize stays the global batch")
     p.add_argument("--y0TailAvg", type=int, default=1,
                    help="report Y0 as the mean over the last k outer epochs "
@@ -92,37 +86,18 @@ def _add_pricing_flags(p: argparse.ArgumentParser, lr_y0, lr_loc, lr_reg,
                         "oracle-free MC payoff estimate (robustness: avoids "
                         "the spurious basin ~1/3 of std-normal inits hit)")
     p.add_argument("--fast", action="store_true",
-                   help="TPU speed preset (accuracy-gated, full f32): "
-                        "Chebyshev-collocated compensator (64 points, full "
-                        "node rule), Chebyshev-collocated closed-form pricer, "
-                        "inverse-CDF Poisson sampling. See BASELINE.md and "
-                        "tests/test_fast_paths.py")
-
-
-def _resolve_sweep_impl(choice, hoisted=False):
-    """CLI default for --sweepImpl: the measured-fastest DIRECT-sweep path on
-    the platform we are actually on (pallas on TPU, xla elsewhere) — the same
-    policy bench.py's parity mode uses, so what the CLI runs is what the
-    benchmark claims.  Under ``--fast`` (hoisted tables) the default is
-    "xla": the kernel's node-packing quantizes the net differently from the
-    in-body heads and the piecewise fit amplifies the mismatch — measured
-    merton_speed_mc gate FAIL at 5.7e-3 vs 2.1e-4 for XLA-built tables
-    (BASELINE.md MC profile note); an explicit --sweepImpl pallas still
-    opts in."""
-    if choice is not None:
-        return choice
-    if hoisted:
-        return "xla"
-    import jax
-
-    return "pallas" if jax.devices()[0].platform == "tpu" else "xla"
+                   help="speed preset (accuracy-gated, full f32): "
+                        "hoisted piecewise collocation of the compensator "
+                        "(64 points, full node rule) and of the closed-form "
+                        "pricer, inverse-CDF Poisson sampling, chunked scan "
+                        "(the bench.py speed config; tests/test_fast_paths.py)")
 
 
 def _pricing_common(args) -> dict:
     fast = {}
     if args.fast:
-        # the accuracy-gated speed preset (BASELINE.md): Chebyshev-collocated
-        # compensator (full node rule) + icdf Poisson sampling, full f32
+        # the accuracy-gated speed preset: collocated compensator (full node
+        # rule) + icdf Poisson sampling, full f32
         fast = dict(x_interp="chebyshev", n_cheb=64, jump_sampler="icdf",
                     price_mode="chebyshev", hoist=True,
                     hoist_interp="piecewise", scan_chunk=2)
@@ -133,7 +108,6 @@ def _pricing_common(args) -> dict:
         lrate_loc=args.lRateLoc, lrate_reg=args.lRateReg,
         activation=args.activation, a_lin=args.aLin, methods=args.methods,
         compensator=args.compensator, n_mc=args.nMC, seed=args.seed,
-        sweep_impl=_resolve_sweep_impl(args.sweepImpl, hoisted=args.fast),
         data_parallel=args.dataParallel, y0_tail_avg=args.y0TailAvg,
         y0_warm_start=args.y0WarmStart, io=_io_from_args(args), **fast,
     )
@@ -169,11 +143,10 @@ def _add_mfg_flags(p: argparse.ArgumentParser, defaults: MFGPoAConfig | MFGCompa
                         "normal draws (which cannot reach the ~-46 consensus "
                         "within the reference budget's Adam travel bound)")
     p.add_argument("--fast", action="store_true",
-                   help="TPU speed config: icdf Cox jump sampler + "
-                        "scan_chunk=16 (BASELINE.md MFG profile note: +7-8%% "
-                        "from chunking plus the sampler's 3-11x at large "
-                        "batch). Same laws/math; tested vs the exact sampler "
-                        "and the flat scan in tests/.")
+                   help="speed config: icdf Cox jump sampler + "
+                        "scan_chunk=16 (the bench.py --model mfg config). "
+                        "Same laws/math; tested vs the exact sampler and "
+                        "the flat scan in tests/.")
 
 
 def _mfg_common(args) -> dict:
@@ -198,7 +171,7 @@ def _mfg_common(args) -> dict:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="deepfbsdejsolvers_tpu",
-        description="TPU-native deep FBSDE solvers with jumps")
+        description="deep FBSDE solvers with jumps (JAX)")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("merton", help="Merton pricing sweep (mainMerton)")
@@ -240,15 +213,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "config (see bench.py)")
     p.add_argument("--compensator", type=str, default="quadrature",
                    choices=["quadrature", "mc"])
-    p.add_argument("--sweep", type=str, default=None,
-                   choices=["xla", "pallas"])
     p.add_argument("--rng", type=str, default="threefry",
                    choices=["threefry", "rbg"])
-    p.add_argument("--fused", action="store_true",
-                   help="fused whole-rollout Pallas kernels for the merton "
-                        "speed config (ops/pallas_rollout.py)")
-    p.add_argument("--fusedPrecision", type=str, default=None,
-                   choices=["default", "highest"])
 
     return parser
 
@@ -256,6 +222,11 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     verbose = not getattr(args, "quiet", False)
+    if args.cmd != "bench":       # bench.py sets up its own process
+        from deepfbsdejsolvers_tpu.utils.compile_cache import (
+            enable_compile_cache)
+
+        enable_compile_cache()
 
     import contextlib
 
@@ -305,7 +276,7 @@ def _dispatch(args, verbose: bool) -> int:
                            n_replay=args.nReplay, pi_list=args.piList,
                            **_mfg_common(args))
         res = run_mfg_poa(cfg, verbose=verbose)
-        print(res.table().to_string(index=False))
+        print(res.to_text())
     elif args.cmd == "bench":
         import os
         import subprocess
@@ -326,12 +297,6 @@ def _dispatch(args, verbose: bool) -> int:
                "--rng", args.rng]
         if args.parity:
             cmd.append("--parity")
-        if args.sweep:
-            cmd += ["--sweep", args.sweep]
-        if args.fused:
-            cmd.append("--fused")
-        if args.fusedPrecision:
-            cmd += ["--fusedPrecision", args.fusedPrecision]
         return subprocess.call(cmd)
     return 0
 

@@ -73,8 +73,7 @@ class PricingConfigBase:
     n_poisson_max: int = 6            # quadrature sizing (Merton)
     n_hermite: int = 8
     n_laguerre: int = 12              # quadrature sizing (VG)
-    compute_dtype: Optional[str] = None   # "bfloat16" (biases Y0 ~3e-3 — see BASELINE.md)
-    sweep_impl: str = "xla"           # "pallas" = fused MXU compensator kernel
+    compute_dtype: Optional[str] = None   # "bfloat16" (biases Y0 ~3e-3)
     jump_sampler: str = "exact"       # "icdf" = truncated inverse-CDF Poisson
     x_interp: str = "direct"          # "chebyshev" = collocated compensator
     n_cheb: int = 64
@@ -89,19 +88,18 @@ class PricingConfigBase:
     # nominal batch inside the solver (SolversJumpDiff.py:435,503) — kept as
     # an explicit config knob instead of a hidden multiplier.
     reg_batch_multiplier: int = 1000
-    # Shard the path batch over all visible chips (1-D data mesh, gradient
-    # all-reduce over ICI).  batch_size stays the GLOBAL batch: each chip
+    # Shard the path batch over all visible devices (1-D data mesh,
+    # gradient all-reduce across it).  batch_size stays the GLOBAL batch: each chip
     # simulates ceil(batch/n_chips) paths.
     data_parallel: bool = False
     # Report Y0 as the mean of the last k outer-epoch estimates instead of
     # the final one (Polyak-style readout).  The Global scheme's trainable
     # Y0 random-walks around its optimum under SGD noise; averaging the
-    # trailing epochs removes most of that variance (see BASELINE.md gate
-    # study).  1 = reference behavior (last epoch).
+    # trailing epochs removes most of that variance (round-2 gate study).  1 = reference behavior (last epoch).
     y0_tail_avg: int = 1
     # Initialize the Global scheme's trainable Y0 at an oracle-free MC
     # payoff estimate instead of the reference's std-1 normal draw (~1/3 of
-    # which land Adam in a spurious negative-Y0 basin — BASELINE.md gate
+    # which land Adam in a spurious negative-Y0 basin — round-2 gate
     # study).  Off by default for init parity.
     y0_warm_start: bool = False
     seed: int = 0
@@ -156,8 +154,7 @@ class MFGConfigBase:
     jump_model: str = "stochastic"
     activation_hat: str = "tanh"
     activation: str = "tanh"
-    # TPU speed knobs (CLI --fast sets icdf + scan_chunk=16; BASELINE.md MFG
-    # profile note): "icdf" replaces jax.random.poisson's per-path rejection
+    # Speed knobs (CLI --fast sets icdf + scan_chunk=16): "icdf" replaces jax.random.poisson's per-path rejection
     # loop with the table-inverted Cox sampler; scan_chunk unrolls the time
     # scan in blocks (ops/scan.py) — same math, tested flat-equal.
     jump_sampler: str = "exact"
@@ -168,7 +165,7 @@ class MFGConfigBase:
     # Picard-iterated MC estimates of the BSDE initial values instead of the
     # reference's std-1 normal draws (MFGSolver.warm_start_y0).  At the
     # reference budget the Glorot-init scalars cannot travel from ~0 to the
-    # ≈ −46 consensus (lr·steps bounds travel at ≈ 20 — BASELINE.md
+    # ≈ −46 consensus (lr·steps bounds travel at ≈ 20 — round-4 MFG study,
     # mfg-compare).  Off by default for init parity.
     y0_warm_start: bool = False
     seed: int = 0

@@ -155,10 +155,9 @@ def run_mfg_comparison(config: MFGComparisonConfig,
 
 def _plot(config: MFGComparisonConfig, results: Dict[str, MFGMethodResult]):
     """Two-panel (Y0_hat, Y0) convergence overlay (mainMFGComparison.py:148-161)."""
-    import matplotlib
+    from deepfbsdejsolvers_tpu.experiments.plots import pyplot
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    plt = pyplot()
 
     fig, ax = plt.subplots(nrows=1, ncols=2, figsize=(12, 4))
     for method in config.methods:

@@ -3,7 +3,7 @@
 For each pricing case and each π, trains an MFG model (coeff_equi=1) and an
 aggregate-MFC model (coeff_equi=2), replays both players' trained policies on
 ONE frozen common-noise set, and tabulates PoA = cost_MFG / cost_MFC with 95%
-CIs (mainMFGPoA.py:189-337).  Artifacts: a pandas table (CSV), JSONL metrics,
+CIs (mainMFGPoA.py:189-337).  Artifacts: the PoA table (CSV), JSONL metrics,
 and optionally the multi-page PDF of consumption/deviation/price panels
 (:362-375).
 
@@ -14,6 +14,7 @@ intended behavior end-to-end (SURVEY.md §2 #12/#14).
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import os
 from typing import Dict, List
@@ -53,19 +54,37 @@ class PoACell:
     evaluators: Dict[str, MFGFixedTrajectoryEvaluator]
 
 
+TABLE_COLUMNS = ("case", "pi", "PoA", "MFG cost", "MFG ci95", "MFC cost",
+                 "MFC ci95")
+
+
 @dataclasses.dataclass
 class PoARunResult:
     cells: List[PoACell]
 
-    def table(self):
-        """PoA table as a pandas DataFrame (mainMFGPoA.py:332-337)."""
-        import pandas as pd
-
-        rows = [{"case": c.case, "pi": c.pi, "PoA": c.poa,
-                 "MFG cost": c.mfg_cost, "MFG ci95": c.mfg_ci,
-                 "MFC cost": c.mfc_cost, "MFC ci95": c.mfc_ci}
+    def table(self) -> List[dict]:
+        """PoA table rows, one dict per sweep point with the
+        ``TABLE_COLUMNS`` keys (mainMFGPoA.py:332-337)."""
+        return [dict(zip(TABLE_COLUMNS,
+                         (c.case, c.pi, c.poa, c.mfg_cost, c.mfg_ci,
+                          c.mfc_cost, c.mfc_ci)))
                 for c in self.cells]
-        return pd.DataFrame(rows)
+
+    def write_csv(self, path: str) -> None:
+        with open(path, "w", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=TABLE_COLUMNS)
+            writer.writeheader()
+            writer.writerows(self.table())
+
+    def to_text(self) -> str:
+        """The table as aligned plain text, one line per sweep point."""
+        cells = [list(TABLE_COLUMNS)] + [
+            [r["case"]] + [f"{r[k]:.6g}" for k in TABLE_COLUMNS[1:]]
+            for r in self.table()]
+        widths = [max(len(row[i]) for row in cells)
+                  for i in range(len(TABLE_COLUMNS))]
+        return "\n".join("  ".join(v.rjust(w) for v, w in zip(row, widths))
+                         for row in cells)
 
 
 def _make_model(config: MFGPoAConfig, pi: float, p0: float, p1: float,
@@ -158,7 +177,7 @@ def run_mfg_poa(config: MFGPoAConfig, verbose: bool = True) -> PoARunResult:
 
     result = PoARunResult(cells=cells)
     if io.outdir:
-        result.table().to_csv(os.path.join(io.outdir, "poa_table.csv"), index=False)
+        result.write_csv(os.path.join(io.outdir, "poa_table.csv"))
         if io.save_plots:
             pretrain = _pretrain_evaluators(config, noise_model, scheme, key,
                                             dw0, dws, dn)
@@ -194,10 +213,9 @@ def _plot_pdf(config: MFGPoAConfig, result: PoARunResult, pretrain=None):
     consumption / intensity twin-axis / intensity / jump indicator,
     mainMFGPoA.py:154-186), then consumption / deviation / price panels per
     sweep point, then the PoA-vs-π curves (:252-335,362-375 intended output)."""
-    import matplotlib
+    from deepfbsdejsolvers_tpu.experiments.plots import pyplot
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    plt = pyplot()
     from matplotlib.backends.backend_pdf import PdfPages
 
     path = os.path.join(config.io.outdir, "simulations_all_cases.pdf")

@@ -43,7 +43,7 @@ def build_model(config):
         # its price_eval knob; the near-expiry kink caveat is in the model).
         # jump_sampler="icdf" (the --fast preset) swaps the gamma rejection
         # sampler for the precomputed subordinator-quantile table — the
-        # round-3 4.2x VG win (BASELINE.md VG profile note).
+        # round-3 VG speed path.
         return VGModel(T=1.0, N=30, r=0.1, theta=-0.1, kappa=0.1, sigJ=0.2,
                        K=1.0, x0=1.0, coupling=coupling, pricer=config.pricer,
                        jump_sampler=config.jump_sampler,
@@ -83,7 +83,7 @@ def _train_one(config, model, method: str, logger: Optional[MetricsLogger],
             n_poisson_max=config.n_poisson_max, n_hermite=config.n_hermite,
             n_laguerre=config.n_laguerre, x_interp=config.x_interp,
             n_cheb=config.n_cheb),
-        compute_dtype=config.compute_dtype, sweep_impl=config.sweep_impl,
+        compute_dtype=config.compute_dtype,
         hoist=config.hoist, hoist_interp=config.hoist_interp,
         scan_chunk=config.scan_chunk,
     )
@@ -194,10 +194,9 @@ def run_pricing(config, verbose: bool = True) -> PricingRunResult:
 def _plot_convergence(config, ref_price: float, results: Dict[str, MethodResult]):
     """The reference's Y0-vs-epoch overlay (mainMerton.py:124-128), written to
     a file instead of plt.show()."""
-    import matplotlib
+    from deepfbsdejsolvers_tpu.experiments.plots import pyplot
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    plt = pyplot()
     import numpy as np
 
     fig, ax = plt.subplots(figsize=(10, 6))

@@ -10,8 +10,8 @@ Behavioral parity with the reference ``MertonJumpModel``
   Black-Scholes prices (:40-48),
 * driver f(Y) = -rY (:64-65) and payoff g(X) = (X-K)+ (:68-69).
 
-TPU-first design
-----------------
+Design
+------
 The reference recomputes the `limit`-term series *inside the drift at every
 timestep of every gradient step* — including fresh `tf.range`/`tile`/`lgamma`
 work per call.  Here the step-dependent series coefficients depend only on the
@@ -70,16 +70,16 @@ class MertonJumpModel:
     limit: int = 30
     # "series" evaluates the power series exactly per call (reference
     # semantics).  "table" precomputes per-step price curves on a fine
-    # log-moneyness grid and cubic-interpolates (4 gathers/eval — measured
-    # gather-bound on TPU, kept for CPU/host use).  "chebyshev" evaluates the
-    # exact series at 64 Chebyshev points spanning the batch's spot range and
-    # reconstructs per path by Clenshaw — no gathers, ~1e-7 accurate (the
-    # series is analytic in x), ~1.8x end-to-end on TPU (BASELINE.md).
+    # log-moneyness grid and cubic-interpolates (4 gathers/eval).
+    # "chebyshev" evaluates the exact series at 64 Chebyshev points spanning
+    # the batch's spot range and reconstructs per path by Clenshaw — no
+    # per-path gathers or series, ~1e-7 accurate (the series is analytic in
+    # x); the speed config's pricer.
     price_mode: str = "series"
     n_cheb_price: int = 64
     # "exact" draws Poisson via jax.random.poisson (rejection-based);
-    # "icdf" inverts the CDF truncated at 1e-9 tail mass — cheaper on TPU
-    # (k_max compares on the VPU, no rejection loop), law equal to 1e-9.
+    # "icdf" inverts the CDF truncated at 1e-9 tail mass — k_max elementwise
+    # compares instead of a rejection loop, law equal to 1e-9.
     jump_sampler: str = "exact"
     table_points: int = 4097
     table_log_m_max: float = 5.0
@@ -159,8 +159,8 @@ class MertonJumpModel:
         J = dN*μJ + σJ*sqrt(dN)*N(0,1), dN ~ Poisson(λ dt)."""
         k_n, k_g = jax.random.split(key)
         if self.jump_sampler == "icdf":
-            # dN = #{k : cdf_k < U}; k_max comparisons on the VPU beat the
-            # rejection loop of jax.random.poisson in the hot path.
+            # dN = #{k : cdf_k < U}: k_max elementwise comparisons instead
+            # of the rejection loop of jax.random.poisson in the hot path.
             u = jax.random.uniform(k_n, shape, jnp.float32)
             dn = jnp.sum(u[..., None] > self._poisson_cdf, axis=-1,
                          dtype=jnp.float32)
@@ -180,9 +180,8 @@ class MertonJumpModel:
 
         drift = (self.r - 0.5 * self.sigma**2 - self.lam * self._kbar) * self._dt
         a = self.price(i, x) if price is None else price
-        # mul_exp, not x*exp(·): the TPU VPU's f32 exp is biased ~−2.6e-6
-        # near 0 and the defect compounds linearly over the N-step walk
-        # (ops/numerics.py docstring; measured −2.9e-3 on E[X_N] at N=1600).
+        # mul_exp, not x*exp(·): a biased f32 exp near 0 compounds linearly
+        # over the N-step walk (ops/numerics.py docstring).
         return mul_exp(x, drift + self.sigma * dw + jump) + self.coupling(
             y - a
         ) * self._dt

@@ -10,7 +10,7 @@ closed-form Pontryagin controls α̂(hY), α(hY, Y) gate tariff/incentive terms 
 R ≤ θ (:83-89); driver f(U) = C·U (:92-93), terminal g(X) = h1 + h2·X (:97-98).
 ``coeff_equi`` switches MFG (1) vs aggregate-MFC (2) price internalization.
 
-TPU-first redesign — and two reference defects fixed, not replicated:
+Redesign — and two reference defects fixed, not replicated:
 
 * the reference model is *stateful* (init/oneStepFrom mutate attributes,
   :35-43,58-71), which only traces correctly because init runs inside
@@ -191,7 +191,7 @@ class SmartGridMFGModel:
     def sample_dN(self, key: jax.Array, state: MFGState) -> Tuple[jax.Array, jax.Array]:
         """dN ~ Poisson(λ dt) plus the analytic compensator λ dt
         (MFGModel.py:54).  The Cox case has a per-path rate, where
-        jax.random.poisson's rejection loop is slow on TPU; the icdf sampler
+        jax.random.poisson runs a per-path rejection loop; the icdf sampler
         inverts the per-path CDF with a static-depth pmf recurrence."""
         lam_dt = self.intensity(state) * self._dt
         if self.jump_sampler == "icdf":

@@ -17,8 +17,9 @@ and two European-call pricers from the VG characteristic function:
 * ``pricer="invfourier"`` — Lewis/Gil-Pelaez trapezoid quadrature on a 10^3
   grid (:95-107), kept as an independent cross-check oracle.  The exercise
   probabilities Q1/Q2 depend only on log-moneyness, so they are likewise
-  precomputed per step on a uniform k-grid (host numpy, complex128 — TPU has
-  no complex dtype support) and evaluated on device by table interpolation.
+  precomputed per step on a uniform k-grid (host numpy, complex128 — no
+  complex arithmetic on the device) and evaluated on device by table
+  interpolation.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ class VGModel:
     # "direct" interpolates the price table per path (4 gathers/eval);
     # "chebyshev" collocates the table interpolant at 64 Chebyshev points over
     # the batch's spot range and evaluates per path by Clenshaw — gathers drop
-    # from O(B) to O(64) per step (TPU gathers measured slower than ndtr).
+    # from O(B) to O(64) per step.
     price_eval: str = "direct"
     n_cheb_price: int = 64
     # robust collocation interval (mean ± k·std); see ops/chebyshev.py.
@@ -212,9 +213,9 @@ class VGModel:
         from deepfbsdejsolvers_tpu.ops.numerics import mul_exp
 
         a = self.price(i, x) if price is None else price
-        # mul_exp, not x*exp(·): TPU f32 exp bias compounds linearly in N
-        # (ops/numerics.py; this was the whole V-shaped N=960 error rise,
-        # BASELINE.md round-4 VG study).
+        # mul_exp, not x*exp(·): a biased f32 exp compounds linearly in N
+        # (ops/numerics.py; the cause of the round-4 V-shaped N=960 error
+        # rise).
         return mul_exp(x, (self.r - self._correction) * self._dt + jump) \
             + self.coupling(y - a) * self._dt
 

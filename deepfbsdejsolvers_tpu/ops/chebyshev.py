@@ -7,15 +7,15 @@ integrates it out, leaving a C^∞ composition of tanh MLPs in x.
 
 So instead of sweeping all M quadrature nodes for every path
 (O(M·B) head evaluations per step — the dominant cost of the whole
-framework even after the fused Pallas kernel), evaluate the exact sweep at
+framework), evaluate the exact sweep at
 C Chebyshev points spanning the batch's spot range (O(M·C), shared across
 the batch), fit the degree-(C-1) Chebyshev interpolant by DCT, and evaluate
 it per path with a Clenshaw recurrence (O(C) fused multiply-adds per path,
-no gathers — gathers measured slower than 60 transcendentals on TPU).
+no per-path gathers).
 
 Error decays geometrically in C for analytic integrands; C=32 puts the
 interpolation error far below the 1e-3 Y0 gate (validated in
-tests/test_chebyshev.py and the BASELINE.md convergence runs).  Gradients
+tests/test_chebyshev.py and the merton_cheb gate).  Gradients
 flow exactly: the DCT fit is linear in the nodal values, Clenshaw is
 polynomial in them, and the interval endpoints are stop_gradient'ed.
 """
@@ -59,9 +59,9 @@ def cheb_fit(values: jax.Array) -> jax.Array:
     """Chebyshev coefficients from values at the cheb_nodes points (last
     axis), via the precomputed DCT matrix."""
     F = jnp.asarray(_cheb_tables(values.shape[-1])[1])
-    # full-f32: TPU's DEFAULT matmul precision quantizes through bf16 MXU
-    # passes (~4e-3 relative) — measurably biases training through the
-    # compensator (see ops/piecewise.pw_fit); this matmul is tiny.
+    # full-f32: a reduced-precision matmul (bf16 passes, TF32) rounds the
+    # coefficients to ~1e-3 relative — measurably biases training through
+    # the compensator (see ops/piecewise.pw_fit); this matmul is tiny.
     return jnp.matmul(values, F.T, precision=jax.lax.Precision.HIGHEST)
 
 

@@ -5,7 +5,7 @@ The reference estimates the compensator of the jump term by re-drawing an
 over it (SolversJumpDiff.py:34,38-39,41; SolversPureJump.py:32,35-36).  That is
 a [5000, B] network sweep per step — the dominant cost of every solver.
 
-This module provides two TPU-native evaluation modes behind one spec:
+This module provides two evaluation modes behind one spec:
 
 * ``kind="mc"``    — faithful Monte-Carlo mode: ``n_mc`` samples drawn from the
   model's jump law each step, **shared across the batch** exactly like the
@@ -18,7 +18,7 @@ This module provides two TPU-native evaluation modes behind one spec:
   the MC estimator's invariant  mean(const) == const.
 
 Either way the inner sweep is an embarrassingly parallel [M, B] network
-evaluation that XLA maps onto a single MXU matmul; under the multi-chip mesh
+evaluation that XLA maps onto a single batched matmul; under a device mesh
 the node axis can additionally be sharded (parallel/data_parallel.py).
 """
 

@@ -1,32 +1,28 @@
-"""Bias-free multiplicative-walk update for TPU f32.
+"""Bias-free multiplicative-walk update in f32.
 
-Measured hardware fact (round 4; probes in ``scripts/vg_forward_diag.py``
---mode chain/moment plus a deterministic-grid comparison against host
-float64, recorded in BASELINE.md "Round 4: the forward-walk exp bias"):
-the TPU VPU's approximate f32 ``exp`` is systematically LOW near argument
-zero — mean relative error ≈ −2.6e-6 over |u| ≤ 1e-3 (max ≈ 5e-6 ≈ 43
-ulps), an absolute deficit concentrated at u ≈ 0 — while f32 multiply/add
-are exactly rounded.  In an N-step multiplicative forward walk
-``X ← X·exp(u_i)`` (the discretized asset dynamics of every pricing model,
-pricingModels.py:53-54 and :184-185) the per-step deficit compounds
-LINEARLY in N: measured E[X_N] defects of −7.6e-4 (VG, N=240) and −2.9e-3
-(Merton, N=1600) match the per-step prediction to a few percent, and a
-same-keys/same-increments A/B (multiplicative carry vs f32 log-sum carry,
-exponentiated once) isolates the per-step ``x·exp(u)`` arithmetic as the
-entire effect.  This was the cause of the V-shaped VG N-study error rise
-(BASELINE.md round-4 VG table) — a forward-LAW bias, not optimization.
+A device's f32 ``exp`` is an approximation; f32 multiply/add are exactly
+rounded.  If the approximation's error near argument zero is BIASED (not
+random-signed), an N-step multiplicative forward walk ``X ← X·exp(u_i)``
+(the discretized asset dynamics of every pricing model,
+pricingModels.py:53-54 and :184-185) compounds the per-step deficit
+LINEARLY in N.  Round 4 diagnosed exactly that on the accelerator this
+library was first tuned on (``scripts/vg_forward_diag.py`` --mode
+chain/moment; history in ``git show 1858ddd:BASELINE.md``): E[X_N]
+defects that grew with N and caused the V-shaped VG N-study error rise — a forward-LAW bias,
+not optimization.  Whether the GPU's ``exp`` is biased is not yet measured;
+``mul_exp`` removes the dependence either way.
 
 The fix: carry the exact part of the factor exactly.  ``mul_exp(x, u)``
 computes ``x·e^u`` as ``x + x·expm1_acc(u)`` where :func:`expm1_acc` is a
 degree-7 Taylor polynomial in exactly-rounded f32 multiplies/adds on
-|u| < 0.125 (truncation < 1.3e-11 relative; TPU's own ``expm1`` is itself
-approximate, rel. error up to ~1.2e-4 of its output, so it cannot be the
-small-branch primitive) with an ``exp(u)−1`` fallback for the rare large
+|u| < 0.125 (truncation < 1.3e-11 relative; a device ``expm1`` is itself
+an approximation, so it is not the small-branch primitive) with an
+``exp(u)−1`` fallback for the rare large
 increments, where exp's error is at the random-ulp relative level.  The
 identity part of the factor never passes through an approximate
 transcendental, so the walk's martingale property survives to the f32
-rounding floor (measured: both walks' E[X_N] defects collapse below MC
-noise — see the BASELINE.md round-4 candidates table).
+rounding floor (round 4: both walks' E[X_N] defects collapsed below MC
+noise).
 """
 
 from __future__ import annotations
@@ -44,7 +40,7 @@ def expm1_taylor7(u: jnp.ndarray) -> jnp.ndarray:
     """Degree-7 Horner expm1, exactly-rounded f32 mul/add only.
 
     u·(1 + u/2·(1 + u/3·(⋯(1 + u/7)))) = Σ_{k=1..7} u^k/k!  — unbiased to
-    ~1e-9 relative for |u| < 0.125 (vs the VPU exp's −2.6e-6 mean defect).
+    ~1e-9 relative for |u| < 0.125.
     """
     p = u / 7.0
     for k in (6.0, 5.0, 4.0, 3.0, 2.0):
@@ -62,7 +58,7 @@ def mul_exp(x: jnp.ndarray, u: jnp.ndarray) -> jnp.ndarray:
     """x·e^u with the identity part of the factor carried exactly.
 
     Drop-in replacement for ``x * jnp.exp(u)`` in multiplicative walks;
-    removes the TPU f32 exp bias that otherwise compounds linearly in the
+    removes any f32 exp bias that would otherwise compound linearly in the
     step count (module docstring).  Differentiable in both arguments.
     """
     return x + x * expm1_acc(u)

@@ -1,20 +1,18 @@
-"""Piecewise-polynomial collocation — the MXU-friendly interpolant.
+"""Piecewise-polynomial collocation — short-chain table interpolant.
 
-Round-3 profiling (scripts/profile_headline.py) showed the speed config is
-bound by the VPU issue rate of the degree-63 Clenshaw recurrences in the scan
-body: ~190 serial vector ops per evaluation, x2 functions (compensator +
-pricer), x forward/backward, per SDE step.  The same 64 degrees of freedom
-arranged as P=8 pieces x degree-(D-1)=7 local polynomials evaluate in
+A degree-63 global Clenshaw recurrence is ~190 serial elementwise ops per
+evaluation, x2 functions (compensator + pricer), x forward/backward, per SDE
+step.  The same 64 degrees of freedom arranged as P=8 pieces x degree-(D-1)=7
+local polynomials evaluate in
 
-  ~10 VPU ops (piece index + local coordinate)
-  + one (B, P) x (P, D) one-hot matmul on the MXU (per-path coefficient
-    select WITHOUT a gather — TPU vector gathers are slow, one-hot matmuls
-    are what the hardware is built for)
-  + (D-1) = 7 vector FMAs of Horner
+  ~10 elementwise ops (piece index + local coordinate)
+  + one exact per-path select of the piece's coefficient row (``_select``)
+  + a degree-7 local Clenshaw chain
 
-— ~7x fewer VPU ops than global Clenshaw, while for analytic integrands the
-piecewise fit is at least as accurate (each piece resolves 1/P of the
-interval with 8 nodes; interpolation error decays like (piece width)^D).
+— a far shorter dependency chain than global Clenshaw, while for analytic
+integrands the piecewise fit is at least as accurate (each piece resolves 1/P
+of the interval with 8 nodes; interpolation error decays like
+(piece width)^D).
 
 Fit: per piece, the function is sampled at D Chebyshev points of the piece
 (no Runge issues, smooth extrapolation to the piece edges) and the local
@@ -76,28 +74,35 @@ def pw_fit(values: jax.Array, n_pieces: int, degree: int) -> jax.Array:
     condition 257 at degree 7 -> a ~257*eps ~ 3e-5 absolute error floor in
     f32).  The Chebyshev collocation basis is sqrt(2)-conditioned at every
     degree, which removes that floor, matches the 2-D pw2_* fit, and is
-    what the fused rollout kernel (ops/pallas_rollout.py) evaluates;
-    pw_eval's per-piece Clenshaw costs 2x the FMAs of the monomial Horner
-    (~5% elementwise share post-hoist, measured irrelevant)."""
+    pw_eval's per-piece Clenshaw costs 2x the FMAs of the monomial
+    Horner."""
     d = degree + 1
     fit = jnp.asarray(_pw_cheb_fit(degree))
     v = values.reshape(values.shape[:-1] + (n_pieces, d))
-    # full-f32 matmul: TPU's DEFAULT matmul precision computes f32 through
-    # bf16 MXU passes, which quantizes the coefficients to ~4e-3 relative —
-    # a direct per-step bias in the compensator that measurably corrupts
-    # training (the round-3 gate failed at 4e-3..1.3e-2 before this fix).
+    # full-f32 matmul: a reduced-precision matmul (bf16 passes, or TF32's
+    # 10-bit mantissa on a GPU) rounds the coefficients to ~1e-3..4e-3
+    # relative — a direct per-step bias in the compensator that measurably
+    # corrupts training (the round-3 gate failed at 4e-3..1.3e-2 before
+    # this fix).
     return jnp.matmul(v, fit.T, precision=jax.lax.Precision.HIGHEST)
 
 
-# Precision of the one-hot coefficient-select matmuls in pw_eval /
-# pw2_eval.  The select must not round the coefficients to bf16 (DEFAULT
-# would — see pw_fit), but full HIGHEST (6 bf16 MXU passes on TPU) is
-# overkill: HIGH's 3-pass decomposition already carries 3x8 = 24 mantissa
-# bits >= f32's 24, i.e. the selected values are exact to f32 rounding at
-# half the MXU issue cost.  These thin (B, P)-select matmuls sit at the
-# MXU issue floor, so pass count is directly wall-clock (measured on the
-# round-3 Γ-table path).
-SELECT_PRECISION = jax.lax.Precision.HIGH
+# Per-path coefficient select.  It must return the table rows EXACTLY: a
+# one-hot matmul at DEFAULT or HIGH precision runs in TF32 on an H100
+# (10-bit mantissa; measured ~900 f32 eps off at 2^17 points on an H100
+# 80GB HBM3 at 700 W), which is the per-step compensator bias pw_fit's note
+# describes.  HIGHEST makes the one-hot matmul exact (full f32 products of
+# 1.0/0.0 with the row).  The other exact form, a gather coef[k] whose
+# gradient is a scatter-add, measured 2.2e8 against 4.4e8 paths*steps/s for
+# the one-hot matmul in the headline step on the same card (PERF.md).
+
+
+def _select(coef: jax.Array, k: jax.Array) -> jax.Array:
+    """Rows ``coef[k]`` of a (P, D) table for float piece indices k (B,)
+    already clipped to [0, P-1]; returns (B, D), exact in f32."""
+    onehot = (k[..., None] == jnp.arange(coef.shape[-2], dtype=k.dtype)
+              ).astype(coef.dtype)
+    return jnp.matmul(onehot, coef, precision=jax.lax.Precision.HIGHEST)
 
 
 def pw_eval(coef: jax.Array, x: jax.Array, x_lo: jax.Array,
@@ -114,10 +119,7 @@ def pw_eval(coef: jax.Array, x: jax.Array, x_lo: jax.Array,
     s = jnp.clip((x - x_lo) / span, 0.0, 1.0) * p              # global in [0, P]
     k = jax.lax.stop_gradient(jnp.clip(jnp.floor(s), 0, p - 1))
     t = 2.0 * (s - k) - 1.0                                    # local in [-1, 1]
-    # one-hot piece select -> per-path coefficient rows via the MXU
-    # (exact to f32 rounding at SELECT_PRECISION — see its note).
-    onehot = (k[..., None] == jnp.arange(p, dtype=s.dtype)).astype(coef.dtype)
-    c = jnp.matmul(onehot, coef, precision=SELECT_PRECISION)  # (B, D)
+    c = _select(coef, k)                                       # (B, D)
     b1 = jnp.zeros_like(t)
     b2 = b1
     for j in range(d - 1, 0, -1):          # Clenshaw, 2(D-1) FMAs
@@ -140,8 +142,7 @@ def pw_eval_with_deriv(coef: jax.Array, x: jax.Array, x_lo: jax.Array,
     s = jnp.clip(s_raw, 0.0, 1.0) * p
     k = jax.lax.stop_gradient(jnp.clip(jnp.floor(s), 0, p - 1))
     t = 2.0 * (s - k) - 1.0
-    onehot = (k[..., None] == jnp.arange(p, dtype=s.dtype)).astype(coef.dtype)
-    c = jnp.matmul(onehot, coef, precision=SELECT_PRECISION)
+    c = _select(coef, k)
     b1 = jnp.zeros_like(t)
     b2 = b1
     db1 = jnp.zeros_like(t)
@@ -210,8 +211,7 @@ def pw2_fit(values: jax.Array, px: int, dx: int, pj: int, dj: int) -> jax.Array:
     v = jnp.einsum("...aibj,xi->...abxj", v, fx, precision=hi)
     v = jnp.einsum("...abxj,yj->...abxy", v, fj, precision=hi)
     # flatten (px, pj, ddx, ddj) -> (piece = kx*pj + kj, coeff = x*ddj + y)
-    # so pw2_eval selects rows with ONE one-hot matmul over the combined
-    # piece index
+    # so pw2_eval selects rows with ONE select over the combined piece index
     return v.reshape(*lead, px * pj, ddx * ddj)
 
 
@@ -220,8 +220,8 @@ def pw2_eval(coef: jax.Array, x: jax.Array, j: jax.Array, x_lo, x_hi,
     """Evaluate the 2-D piecewise Chebyshev interpolant at (x, j).
 
     coef: (px*pj, (dx+1)*(dj+1)) from pw2_fit (one step's table); x, j (B,).
-    Piece selection is ONE one-hot MXU matmul over the combined index
-    kx*pj + kj (exact, like pw_eval); evaluation is a nested Clenshaw:
+    Piece selection is ONE exact row select over the combined index
+    kx*pj + kj (like pw_eval); evaluation is a nested Clenshaw:
     dx+1 chains of 2*dj FMAs in t_j, then 2*dx in t_x (~2x the FMAs of the
     monomial Horner — bought back many times over by the conditioning, see
     _pw_cheb_fit).  Out-of-interval points clamp to the boundary (gradient 0
@@ -237,10 +237,7 @@ def pw2_eval(coef: jax.Array, x: jax.Array, j: jax.Array, x_lo, x_hi,
     kj = jax.lax.stop_gradient(jnp.clip(jnp.floor(sj), 0, pj - 1))
     tx = 2.0 * (sx - kx) - 1.0                                 # local [-1, 1]
     tj = 2.0 * (sj - kj) - 1.0
-    k = kx * pj + kj
-    onehot = (k[..., None] == jnp.arange(px * pj, dtype=k.dtype)).astype(
-        coef.dtype)
-    c = jnp.matmul(onehot, coef, precision=SELECT_PRECISION)   # (B, ddx*ddj)
+    c = _select(coef, kx * pj + kj)                            # (B, ddx*ddj)
     c = c.reshape(c.shape[:-1] + (ddx, ddj))
     # inner Clenshaw in t_j for each x-degree, then outer Clenshaw in t_x
     acc_j = _clenshaw(c, tj[..., None])                        # (B, ddx)

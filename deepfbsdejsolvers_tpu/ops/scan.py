@@ -9,9 +9,8 @@ math is identical to the flat scan: same xs rows in the same order, same
 carry semantics; loss and gradients match to float-exactness (tested for
 both the pricing and MFG solver families).
 
-Measured on the round-3 speed configs (BASELINE.md scan-chunk note):
-Merton +12% (4.7e8 -> 5.3e8 paths*steps/s), VG +11% once the iCDF
-subordinator sampler removed the sampler bound.  The reference has no
+Chunk sizes are tuned per config with scripts/scan_chunk_ab.py.  The
+reference has no
 analogue — its time loop is a Python ``for`` unrolled into one TF graph
 (coupledPricing/SolversJumpDiff.py:29-43).
 

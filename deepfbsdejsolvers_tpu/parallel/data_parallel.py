@@ -1,8 +1,8 @@
 """Multi-chip SPMD training over a JAX device mesh.
 
 The reference has no distributed execution of any kind (single-device TF;
-SURVEY.md §2 last rows mandate this as new capability).  The TPU-native
-parallelism for this workload:
+SURVEY.md §2 last rows mandate this as new capability).  The parallelism
+for this workload:
 
 * **data parallelism** (``data`` mesh axis) — shard the simulated *paths*:
   each chip rolls out its own path shard with a distinct folded RNG key; the
@@ -19,7 +19,9 @@ Correctness-first structure: the SPMD loss is a ``shard_map`` closure and the
 gradient is taken OUTSIDE it (``jax.grad`` differentiates through shard_map's
 collectives), so the update equals the single-chip gradient of the mesh-wide
 mean loss exactly — no hand-assembled per-shard grad averaging to get wrong.
-XLA lowers the transposed psum/pmean to all-reduces over ICI.
+XLA lowers the transposed psum/pmean to all-reduces over whatever links
+join the devices (NVLink between the GPUs of one host); the mesh assumes no
+topology.
 """
 
 from __future__ import annotations
@@ -85,7 +87,7 @@ def make_dp_update(loss_fn: Callable, optimizer: optax.GradientTransformation,
                    mesh: Mesh, data_axis: str = "data") -> Callable:
     """One SPMD Adam step, jitted: (params, opt_state, key) -> (params,
     opt_state, loss).  Params and optimizer state are replicated; gradients of
-    the shard_map'd loss produce the ICI all-reduces automatically."""
+    the shard_map'd loss produce the all-reduces automatically."""
     dp_loss = make_dp_loss(loss_fn, mesh, data_axis)
 
     @jax.jit

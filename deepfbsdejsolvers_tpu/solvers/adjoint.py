@@ -1,10 +1,10 @@
 """Hand-written transposed-adjoint VJP for the hoisted global rollout.
 
-Why this exists (round-3 trace, BASELINE.md): after the collocation hoist,
-XLA's autodiff of the time scan spends ~30% of the train step on the
-realized-Γ head's per-step dot_generals (jvp + transpose + remat re-forward
-run INSIDE the sequential scan as thin, K-padded matmuls) and ~29% on scan
-buffer traffic (saved-head stacking + per-step xs slicing).
+Why this exists (round-3 trace): after the collocation hoist, XLA's
+autodiff of the time scan spent much of the train step on the realized-Γ
+head's per-step dot_generals (jvp + transpose + remat re-forward run INSIDE
+the sequential scan as thin matmuls) and on scan buffer traffic (saved-head
+stacking + per-step xs slicing).
 
 The structural fix: the adjoint recurrence of the rollout is LINEAR in the
 adjoints, with coefficients that depend only on the forward trajectory:
@@ -14,8 +14,8 @@ adjoints, with coefficients that depend only on the forward trajectory:
 
 so every expensive coefficient (the Γ-head's value/∂x/parameter gradients,
 the table derivatives) can be recomputed in ONE batched pass over all
-(N·B) states — large, MXU-dense, outside any scan — leaving a reverse
-`lax.scan` whose body is ~20 elementwise VPU ops.  The forward saves exactly
+(N·B) states — large, matmul-dense, outside any scan — leaving a reverse
+`lax.scan` whose body is ~20 elementwise ops.  The forward saves exactly
 two (N, B) trajectories (x_i, y_{i+1}) as residuals: no remat, no per-step
 saved-head stacking.
 
@@ -79,7 +79,7 @@ def make_global_adjoint_rollout(model, apply_gam: Callable):
             y = y + z * row["dw"]
             a = pw_eval(row["pc"], x, row["lo"], row["hi"])
             # mul_exp matches the production model.step arithmetic
-            # (ops/numerics.py: TPU f32 exp walk bias)
+            # (ops/numerics.py: f32 exp walk bias)
             x_new = (mul_exp(x, model.uncoupled_log_increments(row["dw"],
                                                                row["j"]))
                      + model.coupling(y - a) * dt)

@@ -29,7 +29,7 @@ class _SolverFacade:
                  compensator: CompensatorSpec = CompensatorSpec(),
                  seed: int = 0, **solver_kw):
         """``solver_kw`` passes through to :class:`PricingSolver` (e.g.
-        ``sweep_impl="pallas"``, ``compute_dtype="bfloat16"``; the Chebyshev
+        ``compute_dtype="bfloat16"``, ``hoist=True``; the Chebyshev
         collocation knobs live on ``compensator`` / the math model)."""
         self.core = PricingSolver(
             model=math_model, scheme=self.scheme, hidden=tuple(hidden),

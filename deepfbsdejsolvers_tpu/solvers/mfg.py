@@ -61,21 +61,18 @@ class MFGSolver:
     activation_hat: str = "tanh"
     activation: str = "tanh"
     remat: bool = True
-    # bfloat16 matmuls for the two heads (f32 params/carries) — TPU speed path
+    # bfloat16 matmuls for the two heads (f32 params/carries) — opt-in
     compute_dtype: str | None = None
     # Chunk the time scan (ops/scan.py): outer scan over N/k chunks of k
     # fully-unrolled steps, rematerialized per chunk.  Same math as the flat
-    # scan (same xs rows, same RNG stream); measured +% on the N=96 MFG
-    # train step — see the BASELINE.md scan-chunk note.  0 = flat.
+    # scan (same xs rows, same RNG stream); tuned per config with
+    # scripts/scan_chunk_ab.py.  0 = flat.
     scan_chunk: int = 0
     # Evaluate both per-step heads through ONE block-diagonal MLP chain
     # (see _make_pair) — halves the per-step dot count; same math (loss
-    # bit-exact, grads ~8e-8 rel).  MEASURED SLOWER on TPU (-3% flat scan,
-    # -6% under scan_chunk=16 at 2^17 — BASELINE.md MFG profile note): the
-    # per-step thin dots are already at their streaming floor and the wider
-    # fused dot's padded backward costs more than the halved count saves.
-    # Kept as a tested opt-in instrument, consistent with the adjoint /
-    # hoist_gamma / fused_rollout negative-result series.
+    # bit-exact, grads ~8e-8 rel).  Measured slower on the accelerator the
+    # library was first tuned on, not yet re-measured on the GPU.  Kept as
+    # a tested opt-in instrument, like adjoint / hoist_gamma.
     fuse_heads: bool = False
 
     def __post_init__(self):
@@ -129,13 +126,10 @@ class MFGSolver:
     def _fused_weights(self, params):
         """Per-layer block-diag(W_hat, W_full) + concatenated biases.
 
-        Built once per loss call, OUTSIDE the scan (step-independent).  On
-        the MXU both heads' matmuls are K-padded to 128 anyway, so the merged
-        (K_hat+K_full ≤ 128)-wide chain costs ONE issue-floor dot per layer
-        where the split heads cost two — the per-step dot count halves.  The
-        math is bit-identical on TPU: the off-diagonal zero blocks contribute
-        exact-zero products in the same accumulator positions the K-padding
-        zeros otherwise occupy."""
+        Built once per loss call, OUTSIDE the scan (step-independent).  The
+        merged chain costs ONE dot per layer where the split heads cost two —
+        the per-step dot count halves.  The off-diagonal zero blocks
+        contribute exact-zero products, so the loss is bit-exact."""
         Ws, bs = [], []
         for Wh, bh, Wf, bf in zip(params["hat"]["W"], params["hat"]["b"],
                                   params["full"]["W"], params["full"]["b"]):
@@ -158,8 +152,7 @@ class MFGSolver:
         """Returns pair_heads(state) -> (h_out, f_out).
 
         Fused path (default): one block-diagonal MLP chain evaluates both
-        heads per step — the MFG trace put the split heads' thin dot_generals
-        at 33% of device time (BASELINE.md MFG profile note).  Falls back to
+        heads per step, halving the per-step thin dot_generals.  Falls back to
         the two separate ``mlp_apply`` calls when depths/activations differ.
         """
         if not self._can_fuse_heads():
@@ -366,7 +359,7 @@ class MFGSolver:
         config's consensus initial values sit at ≈ −46: at the reference's
         own budget (20,000 Adam steps × lr 1e-3) the scalars' total travel
         is bounded at ≈ 20 from init, so the Global scheme cannot reach the
-        four-method consensus band at all (see BASELINE.md mfg-compare).
+        four-method consensus band at all (round-4 mfg-compare study).
 
         Unlike the pricing case there is no "uncoupled" limit to exploit —
         the forward controls α̂(hY), α(hY, Y) depend on the adjoint states

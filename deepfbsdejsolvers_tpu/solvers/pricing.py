@@ -33,7 +33,7 @@ the time feature fed to the nets is the *raw step index* i (not i·dt); the
 sumlocal variants evaluate the step-(i+1) state with time feature i; the
 pure-jump global solver trains only the Γ-net, which also carries Y0.
 
-TPU-first: the time loop is a single ``lax.scan``; ALL rollout noise is drawn
+Execution: the time loop is a single ``lax.scan``; ALL rollout noise is drawn
 in three batched (N, B) kernels before the scan (``_prenoise`` — per-step RNG
 kernels are both launch overhead and backward-pass recompute under remat);
 everything compiles to one XLA program.
@@ -63,10 +63,6 @@ PRICING_SCHEMES = (
 
 Params = Dict[str, dict]
 
-# (scheme, reasons) pairs already warned about — see PricingSolver._pallas_ok.
-_PALLAS_FALLBACK_WARNED: set = set()
-
-
 def _suffix_sum(x: jax.Array) -> jax.Array:
     """S_i = sum_{j >= i} x_j along axis 0 (the multistep accumulation:
     SolversJumpDiff.py:107-108 adds toAdd_i to every previous list entry)."""
@@ -88,26 +84,13 @@ class PricingSolver:
     compensator: CompensatorSpec = CompensatorSpec()
     remat: bool = True
     # Matmul compute dtype for the MLP heads (params/carry stay float32).
-    # "bfloat16" is the TPU speed path (~1.7x on the compensator sweep);
-    # None keeps full float32 (reference-parity accuracy).
+    # "bfloat16" is an opt-in speed path; None keeps full float32
+    # (reference-parity accuracy).
     compute_dtype: Optional[str] = None
-    # Compensator sweep implementation: "xla" (lowered by XLA, works
-    # everywhere) or "pallas" (the fused MXU kernel, ops/pallas_sweep.py —
-    # quadrature OR per-step MC nodes, any batch size (padded), 2-hidden-layer
-    # tanh nets, unsharded; warns once and falls back to XLA when a
-    # precondition fails).
-    sweep_impl: str = "xla"
-    # NOTE (pruned knobs): round-1 also carried Chebyshev collocation of the
-    # Z head and of the realized-jump Γ evaluation.  Both were measured
-    # SLOWER than the direct heads on TPU at 2^17 paths (e.g. Γ collocation
-    # 198 vs 235 Mpps — the Clenshaw recurrence is a serial dependency chain
-    # while the MLP is matmul-parallel) and were removed; collocation only
-    # pays for the *sweep* (``compensator.x_interp``), where it removes an
-    # O(M) factor.
     # When set, the compensator node axis is sharded over this mesh axis: each
-    # shard sweeps its node slice and the weighted partial sums are psum'd over
-    # ICI.  The loss must then run inside shard_map on a mesh with this axis
-    # (parallel/data_parallel.py).
+    # shard sweeps its node slice and the weighted partial sums are psum'd
+    # across the axis.  The loss must then run inside shard_map on a mesh with
+    # this axis (parallel/data_parallel.py).
     comp_axis: Optional[str] = None
     comp_shards: int = 1
     # Hoist the per-step Chebyshev collocation OUT of the time scan: the
@@ -117,18 +100,16 @@ class PricingSolver:
     # (models' ``uncoupled_log_increments``; the small coupling drift is
     # absorbed by ``hoist_pad_frac`` interval padding + Clenshaw's boundary
     # clamp).  The scan body then reduces to pure elementwise math + the
-    # realized-Γ/Z heads.  Round-3 profiling (scripts/profile_headline.py)
-    # showed the per-step in-scan sweep version spends most of its time on
-    # per-step kernel overhead and (N, B) scan-buffer copies, not compute.
+    # realized-Γ/Z heads: no per-step sweep kernels and no (N, B) sweep
+    # buffers inside the scan.
     # Requires ``compensator.x_interp == "chebyshev"`` and no comp sharding.
     hoist: bool = False
     hoist_pad_frac: float = 0.15
     # Hoisted-table evaluator: "clenshaw" evaluates the global degree-(C-1)
     # Chebyshev interpolant (63 serial FMAs x ~3 ops per path per function);
-    # "piecewise" evaluates P local degree-(D-1) polynomials selected by a
-    # one-hot MXU matmul + Horner (~7x fewer VPU ops at the same 64 degrees
-    # of freedom — profiling showed the Clenshaw chains bound the speed
-    # config; see ops/piecewise.py).
+    # "piecewise" evaluates P local degree-(D-1) polynomials after an exact
+    # per-path piece select (short Clenshaw chains at the same 64 degrees of
+    # freedom; see ops/piecewise.py).
     hoist_interp: str = "clenshaw"
     pw_pieces: int = 8
     pw_degree: int = 7
@@ -136,25 +117,16 @@ class PricingSolver:
     # UZ net's output is exactly Z(t, x) — 1-D smooth in x).  Bias-free: the
     # interpolation error is a deterministic function of X_i multiplied by
     # the INDEPENDENT increment dW_i, so E[err(X_i) dW_i] = 0 — it adds
-    # O(3e-5) variance, not bias.  Replaces 3 MXU head dots per step with
-    # the table evaluator.
+    # O(3e-5) variance, not bias.  Replaces 3 head dots per step with the
+    # table evaluator.
     hoist_z: bool = True
     # Collocate the realized-jump Γ head as well (gam-net schemes on the
     # piecewise hoisted path): per-step 2-D tensor-product piecewise tables
     # over (x, j) — x on the same hoisted intervals as the other tables, j on
-    # the EXACT range of that step's pre-drawn jumps.  Motivation: the
-    # realized-Γ head dots were 30% of post-hoist device time (BASELINE.md
-    # round-3 trace) and this removes the last per-path per-step MLP from the
-    # scan.  MEASURED SLOWER on TPU and therefore OFF by default (round-3
-    # A/B at 2^17: 3.10e8 vs 4.33e8 paths·steps/s with exact-select
-    # precision, 3.28e8 vs 4.67e8 at DEFAULT-precision selects): the 2-D
-    # (B,32)x(32,40) one-hot select + nested Clenshaw costs more at-issue-
-    # floor MXU passes and serial (B,8)-row VPU work per step than the three
-    # thin head dots it replaces — the same conclusion as the round-1
-    # in-scan Clenshaw Γ collocation and the round-3 transposed-adjoint
-    # experiment: XLA's streaming of thin MXU matmuls through the scan is
-    # the fastest XLA-level form for this head; removing its cost requires
-    # fusing the scan body itself (Pallas), not another XLA rewrite.
+    # the EXACT range of that step's pre-drawn jumps; this removes the last
+    # per-path per-step MLP from the scan.  OFF by default: it was measured
+    # slower than the three thin head dots it replaces on the accelerator the
+    # library was first tuned on, and has not been re-measured on the GPU.
     # Correctness is gated in tests (exact on CPU to ~5e-7 loss rel);
     # reference Γ-head semantics: SolversJumpDiff.py:37, SolversPureJump.py:34.
     hoist_gamma: bool = False
@@ -168,40 +140,13 @@ class PricingSolver:
     # Hand-written transposed-adjoint VJP for the rollout (solvers/adjoint.py):
     # the backward's head gradients (Γ-net value/∂x/params, table derivatives)
     # are recomputed in ONE batched (N·B) pass outside any scan, leaving a
-    # pure-elementwise reverse scan.  MEASURED SLOWER than XLA autodiff on
-    # TPU (2.14e8 vs 4.22e8 paths·steps/s at 2^17: the batched passes
-    # materialize (N·B)-sized intermediates — 14.5x the HBM bytes, 6.6x the
-    # FLOPs of the in-scan streaming backward; see BASELINE.md round 3).
+    # pure-elementwise reverse scan.  Measured slower than XLA autodiff on
+    # the accelerator the library was first tuned on (the batched passes
+    # materialize (N·B)-sized intermediates); not yet re-measured on the GPU.
     # Kept as a tested opt-in instrument (grads == autodiff to 3e-5,
     # tests/test_adjoint.py).  Global jump-diffusion scheme on the fully
     # hoisted piecewise path only; warns and falls back elsewhere.
     adjoint: bool = False
-    # Fused whole-rollout Pallas kernels (ops/pallas_rollout.py): the entire
-    # N-step forward AND the hand-adjoint backward each run as ONE Pallas
-    # kernel over batch tiles — VMEM-resident carries, no per-step kernel
-    # dispatch, no scan-buffer stacking, tables in VMEM.  This is the fusion
-    # the round-3 profile said the remaining ~50% of step time (thin head
-    # dots at the MXU issue floor + scan buffer traffic + kernel-gap idle)
-    # requires; the XLA-level alternatives are measured dead ends (see
-    # ``adjoint`` and ``hoist_gamma``).  Applies to the Merton-form global
-    # jump-diffusion scheme on the fully hoisted piecewise path with equal
-    # tanh hidden layers <= 128 wide, batch % 1024 == 0, and model.N <= 256
-    # (VMEM residency of the per-tile buffers); falls back loudly elsewhere
-    # (_fused_ok).
-    fused_rollout: bool = False
-    # In-kernel matmul precisions for the fused rollout, split by role
-    # (ops/pallas_rollout module precision-policy note).  ``fused_precision``
-    # governs the one-hot select / table-cotangent dots (None = HIGHEST,
-    # exact selection — Mosaic's in-kernel dot lowering supports only
-    # DEFAULT and HIGHEST; "high" compiles under interpret but raises
-    # NotImplementedError on the chip); ``fused_head_precision`` the Γ-MLP
-    # dots (None = HIGHEST — the accuracy-correct default: the kernel's
-    # packed-weight DEFAULT quantization does NOT cancel against the
-    # DEFAULT-built tables the way the XLA path's does, measured as a
-    # 3-seed gate FAIL; the loss builder matches the table-build precision
-    # to this knob).  "default" heads remain available for throughput A/B.
-    fused_precision: Optional[str] = None
-    fused_head_precision: Optional[str] = None
     # Scale applied to the raw step-index time feature before it enters the
     # nets (t = i * time_scale).  1.0 is reference parity (SolversJumpDiff.py
     # feeds the raw index).  The raw index degrades net quality at large N
@@ -326,80 +271,6 @@ class PricingSolver:
         arg = xb * jnp.exp(jb) if self.jump_diff else xb + xb * jb
         return jnp.stack([t, arg], -1)
 
-    def _pallas_ok(self, params) -> bool:
-        """Whether the fused Pallas sweep applies (see ``sweep_impl``).
-
-        A failed precondition falls back to the XLA sweep LOUDLY — one warning
-        per (solver, reason) naming what disqualified the kernel."""
-        if self.sweep_impl != "pallas":
-            return False
-        reasons = []
-        if self._compute_dtype is not None and self._compute_dtype != jnp.float32:
-            # The kernel computes f32 unconditionally; silently mixing it
-            # with bf16 XLA heads would be a numerics inconsistency, so the
-            # whole solver falls back to the (dtype-honoring) XLA sweep.
-            reasons.append(
-                f"compute_dtype={self.compute_dtype!r} (the fused kernel "
-                "is f32-only)")
-        head = params.get("gam") if (
-            "gam" in params and self.scheme not in ("multistep1", "sumlocal1")
-        ) else params["uz"]
-        ws = head["W"]
-        h = ws[0].shape[1]
-        if not (len(ws) == 3 and ws[1].shape == (h, h)
-                and ws[2].shape[1] == 1 and h <= 128):
-            reasons.append(
-                "head must have exactly 2 equal hidden layers <= 128 wide "
-                f"and 1 output (got widths {[w.shape for w in ws]})")
-        if self.activation != "tanh":
-            reasons.append(f"activation {self.activation!r} != 'tanh'")
-        if reasons:
-            import warnings
-
-            key = (self.scheme, tuple(reasons))
-            if key not in _PALLAS_FALLBACK_WARNED:
-                _PALLAS_FALLBACK_WARNED.add(key)
-                warnings.warn(
-                    "sweep_impl='pallas' requested but falling back to the "
-                    "XLA sweep: " + "; ".join(reasons), stacklevel=3)
-            return False
-        return True
-
-    def _pallas_sweep_mean(self, params, i, x, nodes, weights) -> jax.Array:
-        """Fused-MXU sweep (ops/pallas_sweep.py) over a given node set: packs
-        P=128//H nodes per MXU pass with rank-1 first layer and weight-folded
-        output.  Works for the static quadrature rule, the reference-exact
-        per-step MC draw (``weights=None`` = uniform; large node sets run a
-        fori_loop over groups), and per-comp-shard node slices (the caller
-        psums/pmeans the partial sums — the folded output-bias term ``wb2``
-        scales with the local weight mass, so shard partials compose
-        exactly)."""
-        from deepfbsdejsolvers_tpu.ops import pallas_sweep as ps
-
-        if weights is None:
-            n = nodes.shape[0]
-            weights = jnp.full((n,), 1.0 / n, jnp.float32)
-        use_gam_net = "gam" in params and self.scheme not in (
-            "multistep1", "sumlocal1")
-        head = params["gam"] if use_gam_net else params["uz"]
-        h = head["W"][0].shape[1]
-        nodes_g, weights_g, _ = ps.group_nodes(nodes, weights, h)
-        t = jnp.asarray(i, jnp.float32)
-        if use_gam_net:
-            if not self.jump_diff:
-                feat_g, x_prop = nodes_g, True          # f = X·J (SolversPureJump.py:34)
-            elif self.scheme == "global":
-                feat_g, x_prop = nodes_g, False         # f = J (SolversJumpDiff.py:37)
-            else:
-                feat_g, x_prop = jnp.exp(nodes_g), False  # f = e^J (:173)
-            packed = ps.pack_three_feature(head, t, feat_g, x_prop, weights_g)
-        else:
-            phi_g = (jnp.exp(nodes_g) if self.jump_diff   # X·e^J (:99)
-                     else 1.0 + nodes_g)                  # X + X·J (SolversPureJump.py:95)
-            packed = ps.pack_two_feature(head, t, phi_g, weights_g)
-        a, c, w1b, b1b, v, wb2 = packed
-        return ps.fused_sweep(x, a, c, w1b, b1b, v) + wb2
-
     def _resolve_node_block(self, n_nodes: int, batch: int) -> Optional[int]:
         """Effective node-axis chunk size (CompensatorSpec.node_block): auto
         keeps one block's [block, B, H] activations ~1 GB and is a no-op for
@@ -428,6 +299,11 @@ class PricingSolver:
         with rematerialized blocks: the backward pass replays one block at a
         time, so peak memory is O(block·B) instead of O(M·B) and the
         reference-exact MC-5000 semantics run at the 2^17 headline batch."""
+        with jax.named_scope("comp_sweep"):
+            return self._sweep_mean_blocks(params, i, x, nodes, weights,
+                                           use_gam_net)
+
+    def _sweep_mean_blocks(self, params, i, x, nodes, weights, use_gam_net):
         m = int(nodes.shape[0])
         block = self._resolve_node_block(m, int(x.shape[0]))
         if block is None:
@@ -458,16 +334,10 @@ class PricingSolver:
                        use_gam_net) -> jax.Array:
         """Direct compensator values at arbitrary spot points ``x_pts``:
         weighted node sweep of the Γ-head (the O(M·|x_pts|) primitive)."""
-        nodes_b = nodes[:, None]
-        if use_gam_net:
-            sweep = self._apply(
-                params["gam"], self._gamma_inputs(i, x_pts[None, :], nodes_b)
-            )[..., 0]
-        else:
-            sweep = self._apply(
-                params["uz"], self._unet_jump_inputs(i, x_pts[None, :], nodes_b)
-            )[..., 0]
-        return compensated_mean(sweep, weights)
+        with jax.named_scope("comp_sweep"):
+            sweep = self._sweep_values(params, i, x_pts[None, :],
+                                       nodes[:, None], use_gam_net)
+            return compensated_mean(sweep, weights)
 
     def _gamma_realized(self, params, i, x, j, use_gam_net) -> jax.Array:
         """Γ at the realized jump (direct head evaluation)."""
@@ -518,12 +388,7 @@ class PricingSolver:
                 nodes = jax.lax.dynamic_slice_in_dim(nodes, c * per, per)
                 weights = jax.lax.dynamic_slice_in_dim(weights, c * per, per)
         gam = self._gamma_realized(params, i, x, j, use_gam_net)
-        if self._pallas_ok(params):
-            # the fused kernel sweeps the (possibly shard-local) node set;
-            # shard partials compose through the same psum/pmean as XLA's
-            comp = self._pallas_sweep_mean(params, i, x, nodes, weights)
-        else:
-            comp = self._sweep_mean(params, i, x, nodes, weights, use_gam_net)
+        comp = self._sweep_mean(params, i, x, nodes, weights, use_gam_net)
         if sharded:
             if weights is None:
                 comp = jax.lax.pmean(comp, self.comp_axis)  # mean of MC shards
@@ -603,12 +468,10 @@ class PricingSolver:
         c = self.compensator.n_cheb
         dw, j, kms = noise
         incr = model.uncoupled_log_increments(dw[:N], j[:N])       # (N, B)
-        # cumsum over the step axis as a lower-triangular matmul: XLA lowers
-        # jnp.cumsum to an O(N^2 B) reduce_window on TPU (~0.5 ms/train step
-        # in the trace); the (N, N) @ (N, B) MXU product is ~30x cheaper.
+        # cumsum over the step axis as one (N, N) @ (N, B) lower-triangular
+        # matmul.  HIGHEST: the log-X marginals set the table intervals and
+        # must not be rounded to a reduced-precision matmul mantissa.
         tri = jnp.tril(jnp.ones((N, N), jnp.float32))
-        # HIGHEST: default TPU matmul precision would accumulate the log-X
-        # marginals through bf16 passes (see ops/piecewise.pw_fit)
         csum = jnp.matmul(tri, incr, precision=jax.lax.Precision.HIGHEST)
         lx0 = _math.log(model.x0)
         if shift_next:
@@ -636,40 +499,24 @@ class PricingSolver:
             fit = cheb_fit
         use_gam = self._use_gam_net_flag
         steps = jnp.arange(N)
-        # Matmul-precision policy (measured on the chip, round 3): the node
-        # SWEEPS deliberately run at the platform's DEFAULT precision — on
-        # TPU the in-body realized-Γ/Z heads compute a bf16-quantized net
-        # Γ̃, and the compensator must be E_J[Γ̃] of that SAME quantized
-        # function so the quantization cancels in (Γ − comp); building the
-        # tables at full f32 is "more accurate" in isolation but mismatches
-        # the heads and inflates the loss ~2e-2.  The FIT, by contrast, must
-        # be full-f32 (explicit HIGHEST inside pw_fit/cheb_fit): the
-        # piecewise monomial fit matrix has condition ~257, so a bf16 fit
-        # matmul corrupts the evaluated function by ~1e-2 — the failure mode
-        # that broke the round-3 accuracy gate at 4e-3..1.3e-2.
+        # Matmul-precision policy: the node sweeps below go through the same
+        # mlp_apply as the in-body realized-Γ/Z heads, so both evaluate one
+        # and the same net function (at the precision nets/mlp.py states)
+        # and the compensator is E_J of exactly the Γ the heads see.  The FITS are
+        # explicitly HIGHEST (pw_fit/cheb_fit) and the piece select is exact
+        # (ops/piecewise.py): a coefficient rounded to a reduced matmul
+        # mantissa is a direct per-step bias in the compensator.
         if self.compensator.kind == "mc":
             n_mc = self.compensator.n_mc
-            # OPT-IN (sweep_impl="pallas"): build the tables through the
-            # fused Pallas sweep — its custom VJP saves no [C, n_mc, H]
-            # activations, measured +3.5% (1.43 -> 1.49e8).  NOT the
-            # default: although its dots are DEFAULT precision too, the
-            # kernel's node-packing/rank-1 tricks quantize the net
-            # DIFFERENTLY from the in-body XLA heads (up to 2.8e-3 abs at
-            # the fit points), and the piecewise fit amplifies that
-            # mismatch — measured merton_speed_mc gate FAIL 5.7e-3 mean vs
-            # 2.1e-4 for XLA-built tables (BASELINE.md MC profile note).
-            use_pallas = self._pallas_ok(params)
 
             def comp_row(args):
                 i, xp, km = args
                 mc = self.model.sample_jumps(km, (n_mc,))
-                if use_pallas:
-                    return self._pallas_sweep_mean(params, i, xp, mc, None)
                 return self._sweep_comp_at(params, i, xp, mc, None, use_gam)
 
             # blocks of steps bound the [block*C, n_mc, H] sweep activations
             vals = jax.lax.map(comp_row, (steps, nodes, kms[:N]),
-                               batch_size=None if use_pallas else 8)
+                               batch_size=8)
         else:
             qn, qw = self._quad
             vals = jax.vmap(
@@ -723,7 +570,7 @@ class PricingSolver:
     def hoist_clamp_fractions(self, params, key, batch: int = 8192):
         """Per-step fraction of COUPLED paths falling outside the hoisted
         collocation intervals [lo_i, hi_i] — the runtime diagnostic for the
-        ``hoist_pad_frac`` policy (VERDICT r3 weak #5).
+        ``hoist_pad_frac`` policy.
 
         The intervals are built from the exact UNcoupled X marginals of the
         pre-drawn noise (see :meth:`_hoist_tables`); coupled paths deviate
@@ -736,7 +583,7 @@ class PricingSolver:
         and returns an (N,) array of out-of-interval fractions.  A heavier-
         tailed parameterization that breaks the pad policy shows up here as
         a non-vanishing fraction — see tests/test_fast_paths.py's heavy-tail
-        stress test and the BASELINE.md validity-envelope note."""
+        stress test."""
         if not self._hoist_active():
             raise ValueError("hoist_clamp_fractions needs hoist=True "
                              "(and no comp_axis sharding)")
@@ -874,8 +721,7 @@ class PricingSolver:
         The sweep outputs themselves are only (B,) per step, so they are
         *saved* (``checkpoint_name`` + save_only policy): the backward pass
         re-runs the cheap elementwise step math but NOT the expensive sweep
-        forward — its custom VJP recomputes what it needs tile-by-tile in
-        VMEM.  Measured ~25-30% off the train step at 2^17 paths."""
+        forward."""
         if not self.remat:
             return body
         policy = jax.checkpoint_policies.save_only_these_names("gam", "comp")
@@ -888,12 +734,6 @@ class PricingSolver:
 
             warnings.warn(f"adjoint=True is only implemented for the global "
                           f"scheme; scheme={self.scheme!r} uses autodiff")
-        if self.fused_rollout and self.scheme != "global":
-            import warnings
-
-            warnings.warn(f"fused_rollout=True is only implemented for the "
-                          f"global scheme; scheme={self.scheme!r} uses the "
-                          f"XLA scan")
         builder = getattr(self, f"_loss_{self.scheme}")
         return builder(batch)
 
@@ -903,69 +743,6 @@ class PricingSolver:
                 and self.jump_diff and self.hoist_z
                 and self._price_collocated() and self._use_gam_net_flag
                 and self.scheme == "global")
-
-    def _fused_ok(self, batch) -> bool:
-        """Whether the fused-Pallas rollout (ops/pallas_rollout.py) applies:
-        the adjoint-path conditions plus a Merton-form model (constant-drift
-        log increments, f = -rY, coupling aLin|u|), equal tanh hidden
-        layers, and a tile-divisible batch."""
-        from deepfbsdejsolvers_tpu.ops.pallas_rollout import (
-            TILE, merton_form_constants)
-
-        h = self.hidden
-        return (self._adjoint_ok() and not self.hoist_gamma
-                # like _pallas_ok: the kernel computes f32 unconditionally —
-                # mixing it with bf16-built tables/heads would silently break
-                # the quantization-cancellation design
-                and self._compute_dtype in (None, jnp.float32)
-                and self.activation == "tanh"
-                and len(h) == 2 and h[0] == h[1] and h[0] <= 128
-                and batch % TILE == 0
-                # four (N, TILE) f32 buffers (dw, j, xs, ys) live in VMEM
-                # per program; the validated envelope is N*TILE <= 256*1024
-                # (round-3 bound N=256 at TILE=1024, ~4 MB of buffers in
-                # the ~16 MB VMEM; scales inversely when TILE changes —
-                # the round-4 shipped TILE=4096 admits N <= 64, which
-                # covers the N=50 reference grid the kernel exists for)
-                and self.model.N * TILE <= 256 * 1024
-                and merton_form_constants(self.model) is not None)
-
-    def _loss_global_fused(self, batch):
-        from deepfbsdejsolvers_tpu.ops.pallas_rollout import (
-            make_fused_rollout)
-
-        model, N = self.model, self.model.N
-        interpret = jax.devices()[0].platform != "tpu"
-        roll = make_fused_rollout(model, self.hidden[0],
-                                  time_scale=self.time_scale,
-                                  n_pieces=self.pw_pieces,
-                                  degree=self.pw_degree,
-                                  interpret=interpret,
-                                  precision=self.fused_precision,
-                                  head_precision=self.fused_head_precision)
-
-        # Table precision must MATCH the in-kernel head precision: the
-        # kernel's packed-weight quantization differs from mlp_apply's, so
-        # the XLA path's DEFAULT-sweep cancellation does not transfer — the
-        # fused path needs SELF-consistency instead (both sides near-exact
-        # f32).  Measured on chip: DEFAULT tables + DEFAULT heads fail the
-        # 3-seed gate at 2.2e-2 mean; HIGHEST/HIGHEST matches autodiff
-        # grads to <= 9e-4 at N=50 (ops/pallas_rollout precision note).
-        head_prec = self.fused_head_precision or "highest"
-        table_prec = ("highest" if str(head_prec).lower().endswith("highest")
-                      else "default")
-
-        def loss(params, key):
-            noise = self._prenoise(key, batch)
-            with jax.default_matmul_precision(table_prec):
-                tables = self._hoist_tables(params, noise)
-            x_n, y_n = roll(params["gam"], params["uz"]["y0"],
-                            {k: tables[k] for k in
-                             ("cc", "pc", "zc", "lo", "hi")},
-                            noise[0][:N], noise[1][:N])
-            return jnp.mean(jnp.square(y_n - model.payoff(x_n)))
-
-        return loss
 
     def _loss_global_adjoint(self, batch):
         from deepfbsdejsolvers_tpu.solvers.adjoint import (
@@ -989,17 +766,6 @@ class PricingSolver:
 
     def _loss_global(self, batch):
         model, N, dt = self.model, self.model.N, self.model.dt
-        if self.fused_rollout:
-            if self._fused_ok(batch):
-                return self._loss_global_fused(batch)
-            import warnings
-
-            warnings.warn(
-                "fused_rollout=True requires the fully hoisted piecewise "
-                "Merton-form global path (hoist=True, piecewise, hoist_z, "
-                "no hoist_gamma, collocated price, equal tanh hidden "
-                "layers <= 128 wide, batch % 1024 == 0, model.N <= 256); "
-                "falling back to the XLA scan")
         if self.adjoint:
             if self._adjoint_ok():
                 return self._loss_global_adjoint(batch)
@@ -1171,7 +937,7 @@ class PricingSolver:
         dynamics (coupling zeroed, Y fed as 0 — oracle-free).
 
         The reference inits Y0 from Glorot on a scalar shape (std-1 normal,
-        coupledPricing/Networks.py:14); the BASELINE.md gate study measured
+        coupledPricing/Networks.py:14); the round-2 gate study measured
         ~1/3 of such draws landing Adam in a spurious negative-Y0 basin of the
         Global scheme.  Global scheme only (the other schemes have no y0)."""
         import dataclasses as dc

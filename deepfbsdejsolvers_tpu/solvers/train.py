@@ -5,7 +5,7 @@ host-side double loop — ``num_epochExt`` outer epochs x ``num_epoch`` inner
 gradient steps — printing loss / cumulative seconds / current Y0 each outer
 epoch (SolversJumpDiff.py:55-73).
 
-TPU-native rebuild: one jitted function runs ALL ``num_epoch`` inner steps as a
+Rebuild: one jitted function runs ALL ``num_epoch`` inner steps as a
 ``lax.scan`` over Adam updates, so the host syncs exactly once per outer epoch
 (the single biggest wall-clock lever after batch vectorization).  Adam uses
 eps=1e-7 to match Keras' default.
@@ -101,7 +101,7 @@ def fit(
     gradient step (and the validation eval) to the SPMD data-parallel path
     (parallel/data_parallel.py): each chip rolls out ``loss_fn``'s batch with
     its own folded key and the update is the gradient of the mesh-mean loss,
-    all-reduced over ICI.  ``loss_fn``/``val_loss_fn`` are then *per-shard*
+    all-reduced across the mesh.  ``loss_fn``/``val_loss_fn`` are then *per-shard*
     losses — build them with the per-chip batch size.
 
     ``optimizer``: optional optax transformation overriding the default
@@ -118,11 +118,10 @@ def fit(
         from deepfbsdejsolvers_tpu.parallel.data_parallel import (
             make_dp_epoch, make_dp_loss)
 
-        # Replicate (params, opt_state) onto the mesh.  A checkpoint restore
-        # hands back arrays COMMITTED to a single device (orbax restores with
-        # SingleDeviceSharding), and jit refuses to mix a device-0-committed
-        # argument with the mesh-wide shard_map step ("incompatible devices");
-        # fresh inits are uncommitted and pass through at no cost.  This makes
+        # Replicate (params, opt_state) onto the mesh.  Arrays committed to a
+        # single device (e.g. a restored checkpoint) cannot be mixed with the
+        # mesh-wide shard_map step ("incompatible devices"); fresh inits are
+        # uncommitted and pass through at no cost.  This makes
         # resume-under-mesh equal resume-single-device followed by replication
         # (tests/test_checkpoint.py::test_resume_is_deterministic_under_mesh).
         replicated = NamedSharding(mesh, PartitionSpec())

@@ -3,14 +3,15 @@
 The reference has no checkpointing: training is restart-from-scratch and
 trained weights live only in Keras objects held in Python lists
 (mainMFGComparison.py:113,143 — SURVEY.md §5).  Here the full train state
-``(params, opt_state, rng_key, step)`` is a flat pytree saved with orbax, so
-any run can resume bit-exactly: the rng key is part of the state and per-step
-keys are derived by ``fold_in``, making the noise stream a pure function of
-(saved key, step).
+``(params, opt_state, rng_key, step)`` is a pytree whose flattened leaves are
+written with ``np.savez`` (no pickled objects), so any run can resume
+bit-exactly: the rng key is part of the state and per-step keys are derived
+by ``fold_in``, making the noise stream a pure function of (saved key, step).
 
-JAX typed PRNG keys are an extended dtype orbax cannot serialize directly;
-they are converted through ``jax.random.key_data`` on save and rewrapped on
-restore.
+The tree structure is not stored: restoring takes an ``example`` pytree of
+the same structure (a fresh init) and refills its leaves.  JAX typed PRNG
+keys are an extended dtype ``np.savez`` cannot store; they are converted
+through ``jax.random.key_data`` on save and rewrapped on restore.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ def _pack_keys(tree: Any) -> Any:
         if isinstance(leaf, jax.Array) and jax.dtypes.issubdtype(
                 leaf.dtype, jax.dtypes.prng_key):
             impl = str(jax.random.key_impl(leaf))
-            # orbax only stores arrays — encode the impl name as ASCII bytes
+            # only arrays are stored — encode the impl name as ASCII bytes
             return {"__prng_key__": np.asarray(jax.random.key_data(leaf)),
                     "__prng_impl__": np.frombuffer(impl.encode(), np.uint8).copy()}
         return leaf
@@ -53,35 +54,51 @@ def _unpack_keys(tree: Any) -> Any:
     return jax.tree_util.tree_map(unpack, tree, is_leaf=is_marker)
 
 
+_STATE_FILE = "state.npz"
+
+
 def save_checkpoint(path: str, state: Any) -> None:
     """Save a pytree (params / opt_state / rng keys / python scalars) to
     ``path`` (a directory), overwriting any previous checkpoint there."""
-    import orbax.checkpoint as ocp
-
     path = os.path.abspath(path)
-    ckptr = ocp.StandardCheckpointer()
-    ckptr.save(path, _pack_keys(state), force=True)
-    ckptr.wait_until_finished()
+    os.makedirs(path, exist_ok=True)
+    leaves = jax.tree_util.tree_leaves(_pack_keys(state))
+    tmp = os.path.join(path, _STATE_FILE + ".tmp")
+    with open(tmp, "wb") as f:
+        np.savez(f, *[np.asarray(leaf) for leaf in leaves])
+    os.replace(tmp, os.path.join(path, _STATE_FILE))
 
 
-def restore_checkpoint(path: str, example: Optional[Any] = None) -> Any:
+def _like(saved: np.ndarray, leaf: Any) -> Any:
+    """``saved`` converted to the kind of ``leaf`` (python scalar, jax array
+    or numpy array) with the leaf's dtype."""
+    if isinstance(leaf, (bool, int, float)):
+        return type(leaf)(saved.item())
+    dtype = getattr(leaf, "dtype", saved.dtype)
+    if saved.dtype.kind == "V":
+        # npz stores extension dtypes (bfloat16, ...) as raw bytes
+        saved = saved.view(dtype)
+    if isinstance(leaf, jax.Array):
+        return jax.numpy.asarray(saved, dtype=dtype)
+    return saved
+
+
+def restore_checkpoint(path: str, example: Any) -> Any:
     """Restore a checkpoint saved by :func:`save_checkpoint`.
 
-    ``example`` (an abstract or concrete pytree of the same structure) lets
-    orbax restore with exact dtypes/shardings; without it the raw pytree is
-    returned.
-    """
-    import orbax.checkpoint as ocp
-
-    path = os.path.abspath(path)
-    ckptr = ocp.StandardCheckpointer()
-    if example is not None:
-        target = jax.tree_util.tree_map(ocp.utils.to_shape_dtype_struct,
-                                        _pack_keys(example))
-        restored = ckptr.restore(path, target)
-    else:
-        restored = ckptr.restore(path)
-    return _unpack_keys(restored)
+    ``example`` is a pytree of the same structure as the saved state (e.g. a
+    fresh init); its leaves give the structure, dtypes and leaf kinds of the
+    result."""
+    packed = _pack_keys(example)
+    leaves, treedef = jax.tree_util.tree_flatten(packed)
+    with np.load(os.path.join(os.path.abspath(path), _STATE_FILE)) as data:
+        saved = [data[f"arr_{i}"] for i in range(len(data.files))]
+    if len(saved) != len(leaves):
+        raise ValueError(
+            f"checkpoint at {path} holds {len(saved)} leaves, the example "
+            f"has {len(leaves)}")
+    restored = [_like(s, leaf) for s, leaf in zip(saved, leaves)]
+    return _unpack_keys(jax.tree_util.tree_unflatten(treedef, restored))
 
 
 class CheckpointManager:
@@ -121,7 +138,7 @@ class CheckpointManager:
         dirs = self._step_dirs()
         return dirs[-1][0] if dirs else None
 
-    def restore_latest(self, example: Optional[Any] = None):
+    def restore_latest(self, example: Any):
         """Returns (step, state) of the newest checkpoint, or None."""
         step = self.latest_step()
         if step is None:

@@ -1,12 +1,12 @@
 #!/usr/bin/env python
 """Close (or quantify the floor of) the Merton Global-scheme 1e-3 gate.
 
-Round-1 status (BASELINE.md): the Global scheme's trainable Y0 lands at
+Round-1 status (``git show 1858ddd:BASELINE.md``): the Global scheme's trainable Y0 lands at
 3.4e-3 - 9.4e-3 run-to-run on the standard 3-phase budget — optimization-
 dominated, not numerics-dominated (aLin=0 passes at 3.8e-4; the coupling
 aLin*|Y - A| rectifies head-approximation noise into a drift bias).
 
-This study measures, across seeds, the VERDICT r1 levers:
+This study measures, across seeds, the round-1 review's levers:
   base        3-phase constant-lr fit (round-1 configuration)
   cosine      one fit, cosine-decayed lr (3e-3 -> 0) over the same step budget
   cosine_tail cosine + trailing-average Y0 readout over the last K epochs
@@ -165,7 +165,7 @@ def fit_bias_models(cells):
     """Least-squares fits of bias(N) under competing asymptotics.
 
     cells: {N: mean_abs_error}.  Returns per-model coefficients and the
-    residual RMS, for the BASELINE.md floor-vs-no-floor adjudication."""
+    residual RMS, for the floor-vs-no-floor adjudication."""
     Ns = np.asarray(sorted(cells), dtype=float)
     y = np.asarray([cells[int(n)] for n in Ns])
     out = {}

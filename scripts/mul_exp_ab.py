@@ -1,17 +1,13 @@
 #!/usr/bin/env python
 """Interleaved A/B of the mul_exp walk update vs plain x*exp(u).
 
-Round-4 landed ``ops.numerics.mul_exp`` (a degree-7 Horner expm1 + select
-replacing one ``exp`` in the innermost step of every pricing walk) AFTER
-the round-4 fused-kernel A/B captured the XLA reference at 4.57e8 but
-BEFORE the driver's BENCH_r04 read 4.84e8 — so the ~9-14% spread across
-BENCH_r03 (5.28e8) / RESULTS.md (5.30e8) / 4.57e8 / 4.84e8 confounded
-session-to-session variance with an unmeasured arithmetic tax (VERDICT
-r4 item 1).  This script separates the two: SAME session, SAME warmed
-chip, alternating fresh builds of the shipped speed config with
+``ops.numerics.mul_exp`` (a degree-7 Horner expm1 + select) replaces one
+``exp`` in the innermost step of every pricing walk.  This script measures
+what that arithmetic costs: SAME process, SAME warmed device, alternating
+fresh builds of the shipped speed config with
 
   A: mul_exp(x, u)      (shipped exact walk arithmetic)
-  B: x * jnp.exp(u)     (one VPU transcendental, the biased variant)
+  B: x * jnp.exp(u)     (one transcendental, the variant a biased exp skews)
 
 interleaved A B A B ... so drift affects both arms equally.  ``mul_exp``
 is bound at trace time (models/merton.py ``step`` imports it per call),
@@ -71,7 +67,7 @@ def build_epoch(batch, inner, model_name):
 
 
 def measure_arm(batch, inner, model_name, rounds=5):
-    """Fresh build + warmup + ``rounds`` timed epochs; returns (median tput,
+    """Fresh build + warmup + ``rounds`` timed epochs; returns (median rate,
     times, one loss value for the arm-switch check)."""
     model, epoch, params, opt_state = build_epoch(batch, inner, model_name)
     key = jax.random.key(1)
@@ -128,13 +124,13 @@ def main():
         for name, fn in arms.items():
             numerics.mul_exp = fn
             try:
-                tput, times, loss = measure_arm(args.batch, args.inner,
+                rate, times, loss = measure_arm(args.batch, args.inner,
                                                 args.model)
             finally:
                 numerics.mul_exp = shipped_mul_exp
-            results[name].append(tput)
+            results[name].append(rate)
             losses.setdefault(name, loss)
-            print(f"rep={rep} {name:<12s} {tput:.4e}  "
+            print(f"rep={rep} {name:<12s} {rate:.4e}  "
                   f"times_ms={[f'{t*1e3:.1f}' for t in times]}", flush=True)
 
     print("\n== summary ==")

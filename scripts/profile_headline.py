@@ -1,37 +1,34 @@
 #!/usr/bin/env python
-"""Profile the headline speed-config train step and attribute its time.
+"""Profile a bench.py training step and attribute its device time.
 
-Answers the question BASELINE.md's throughput table leaves open: WHAT bounds
-the 2.6e8 paths*steps/s/chip number.  Three instruments:
+Three instruments:
 
 1. ``--cost``: XLA's compiled cost model (``compiled.cost_analysis()``) —
    total FLOPs, transcendentals, and bytes accessed of one jitted epoch —
    combined with the measured wall-clock into achieved FLOP/s and B/s, and
-   compared against the chip's roofline (TPU v5e: 197 TFLOP/s bf16 MXU,
-   ~3.9e13 f32 MXU-equivalent, 8.1e11 B/s HBM; jax-ml.github.io/scaling-book).
-2. ``--trace DIR``: capture a jax.profiler (XProf) device trace of a few
-   epochs and print the top self-time ops from the xplane proto — the direct
-   "where do the microseconds go" attribution.
-3. ``--ablate``: re-time the epoch under component knockouts (constant
-   compensator, constant pricer, no Z head, forward-only, no remat,
-   scan unroll) — attribution by subtraction for costs the op trace lumps
-   into fused kernels.
+   compared against the device's published peaks (``bench.PEAKS``, keyed
+   by ``device_kind``; an unknown device is an error).
+2. ``--trace DIR``: capture a jax.profiler device trace of a few epochs and
+   reduce it (``utils/profiling.device_time_split``): device busy and idle
+   share, the share of kernel time inside the compensator sweep's
+   ``comp_sweep`` named scope, and the top HLO ops by device time.  The
+   reduction is written to ``DIR/split.json``.
+3. ``--ablate``: re-time the epoch under component knockouts (1-node
+   compensator, coarser collocation, direct pricer, forward-only, no remat)
+   — attribution by subtraction.
 
 Usage:
   python scripts/profile_headline.py --cost --ablate
-  python scripts/profile_headline.py --trace /tmp/xprof
+  python scripts/profile_headline.py --mode parity --trace chiprun_out/tr
 """
 
 import argparse
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, ".")
-
-# TPU v5e (v5 lite) single-chip peaks, scaling-book numbers.
-PEAK_BF16_FLOPS = 1.97e14
-PEAK_HBM_BPS = 8.1e11
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def build_epoch(batch, inner, mode="speed", model_name="merton",
@@ -69,6 +66,8 @@ def timed(epoch, params, opt_state, key, rounds=3, warmup=2):
 def run_cost(batch, inner, mode, model_name="merton", compensator="quadrature"):
     import jax
 
+    from bench import peaks_for
+
     model, solver, params, optimizer, opt_state, loss_fn, epoch, key = \
         build_epoch(batch, inner, mode, model_name, compensator)
     lowered = jax.jit(epoch).lower(params, opt_state, key)
@@ -76,6 +75,7 @@ def run_cost(batch, inner, mode, model_name="merton", compensator="quadrature"):
     ca = compiled.cost_analysis()
     if isinstance(ca, list):  # older jax returns [dict]
         ca = ca[0]
+    peaks = peaks_for(jax.devices()[0].device_kind)
     med = timed(epoch, params, opt_state, key)
     flops = ca.get("flops", float("nan"))
     bytes_acc = ca.get("bytes accessed", float("nan"))
@@ -91,8 +91,8 @@ def run_cost(batch, inner, mode, model_name="merton", compensator="quadrature"):
         "xla_bytes_accessed_per_epoch": bytes_acc,
         "achieved_flops_per_sec": flops / med,
         "achieved_bytes_per_sec": bytes_acc / med,
-        "pct_of_bf16_mxu_peak": 100 * flops / med / PEAK_BF16_FLOPS,
-        "pct_of_hbm_peak": 100 * bytes_acc / med / PEAK_HBM_BPS,
+        "pct_of_f32_peak": 100 * flops / med / peaks["f32_flops"],
+        "pct_of_hbm_peak": 100 * bytes_acc / med / peaks["hbm_bytes"],
         "arithmetic_intensity_flops_per_byte": flops / bytes_acc,
         "device": str(jax.devices()[0]),
     }
@@ -100,53 +100,46 @@ def run_cost(batch, inner, mode, model_name="merton", compensator="quadrature"):
     return out
 
 
-def run_trace(batch, inner, mode, trace_dir, top=40, model_name="merton",
+def run_trace(batch, inner, mode, trace_dir, top=20, model_name="merton",
               compensator="quadrature"):
+    import glob
+
     import jax
+
+    from deepfbsdejsolvers_tpu.utils.profiling import (
+        device_time_split, scope_weights)
 
     model, solver, params, optimizer, opt_state, loss_fn, epoch, key = \
         build_epoch(batch, inner, mode, model_name, compensator)
+    compiled = epoch.lower(params, opt_state, key).compile()
+    hlo = compiled.as_text()
+    weights = scope_weights(hlo, "comp_sweep")
     # warm up fully so the trace holds steady-state epochs only
     for w in range(2):
-        params, opt_state, loss = epoch(params, opt_state,
-                                        jax.random.fold_in(key, 1000 + w))
+        params, opt_state, loss = compiled(params, opt_state,
+                                           jax.random.fold_in(key, 1000 + w))
         jax.block_until_ready(loss)
     jax.profiler.start_trace(trace_dir)
     for r in range(2):
-        params, opt_state, loss = epoch(params, opt_state,
-                                        jax.random.fold_in(key, r))
+        params, opt_state, loss = compiled(params, opt_state,
+                                           jax.random.fold_in(key, r))
         jax.block_until_ready(loss)
     jax.profiler.stop_trace()
-    print(f"# trace written to {trace_dir}", file=sys.stderr)
-    summarize_trace(trace_dir, top)
-
-
-def summarize_trace(trace_dir, top=40):
-    """Top device ops by self time from the newest xplane.pb under trace_dir."""
-    import glob
-    import os
-
-    paths = sorted(glob.glob(os.path.join(
-        trace_dir, "**", "*.xplane.pb"), recursive=True),
-        key=os.path.getmtime)
-    if not paths:
-        print("no xplane.pb found", file=sys.stderr)
-        return
-    path = paths[-1]
-    from xprof.convert import raw_to_tool_data as rtd
-
-    data, _ = rtd.xspace_to_tool_data([path], "framework_op_stats", {})
-    import gzip
-    import io
-
-    # framework_op_stats arrives as gzipped JSON table
-    if isinstance(data, bytes):
-        try:
-            data = gzip.GzipFile(fileobj=io.BytesIO(data)).read()
-        except OSError:
-            pass
-        data = data.decode()
-    print(data[:200000])
+    path = sorted(glob.glob(os.path.join(trace_dir, "**", "*.xplane.pb"),
+                            recursive=True), key=os.path.getmtime)[-1]
+    # XLA:CPU runs its kernels on the host plane; any accelerator has its own
+    on_cpu = jax.devices()[0].platform == "cpu"
+    split = device_time_split(path, weights, top,
+                              plane_prefix="/host:CPU" if on_cpu else "/device:")
+    split.update(mode=mode, model=model_name, compensator=compensator,
+                 batch=batch, inner=inner, epochs_traced=2,
+                 device=str(jax.devices()[0]))
+    with open(os.path.join(trace_dir, "split.json"), "w") as f:
+        json.dump(split, f, indent=1)
+    with open(os.path.join(trace_dir, "module.hlo.txt"), "w") as f:
+        f.write(hlo)
+    print(json.dumps({k: v for k, v in split.items() if k != "ops_ns"}))
+    return split
 
 
 def run_ablate(batch, inner):
@@ -225,14 +218,12 @@ def main():
     p.add_argument("--cost", action="store_true")
     p.add_argument("--ablate", action="store_true")
     p.add_argument("--trace", type=str, default=None)
-    p.add_argument("--summarize", type=str, default=None,
-                   help="parse an existing trace dir without running")
-    p.add_argument("--top", type=int, default=40)
+    p.add_argument("--top", type=int, default=20)
     args = p.parse_args()
 
-    if args.summarize:
-        summarize_trace(args.summarize, args.top)
-        return
+    from deepfbsdejsolvers_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.cost:
         run_cost(args.batch, args.inner, args.mode, args.model,
                  args.compensator)

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """A/B the time-scan chunking knob on the round-3 speed config.
 
-The post-hoist trace (BASELINE.md round 3) attributes ~29% of device time
-to scan-buffer traffic (dynamic_update_slice stacking of saved heads +
-per-step xs reads) and ~19% to kernel-gap idle.  ``PricingSolver.scan_chunk``
+Scan-buffer traffic (dynamic_update_slice stacking of saved heads +
+per-step xs reads) and kernel-gap idle are per-step costs of the flat scan.
+``PricingSolver.scan_chunk``
 replaces the flat N-step lax.scan with an outer scan over N/k chunks of k
 fully-unrolled steps (static xs indexing, chunk-boundary remat) — this
 script measures whether that converts the buffer traffic into throughput.
@@ -106,9 +106,9 @@ def main():
 
     for chunk in map(int, args.chunks.split(",")):
         try:
-            tput, times, loss = measure_one(args.batch, args.inner, chunk,
+            rate, times, loss = measure_one(args.batch, args.inner, chunk,
                                             args.model, args.compensator)
-            print(f"chunk={chunk:<3d} {tput:.3e}  "
+            print(f"chunk={chunk:<3d} {rate:.3e}  "
                   f"med={sorted(times)[len(times)//2]*1e3:.1f}ms  "
                   f"loss={loss:.6f}", flush=True)
         except Exception as e:

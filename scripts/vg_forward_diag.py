@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Separate the two candidate causes of the VG N=960 error rise
-(BASELINE.md "Round 4: the VG direct coupled gate": all seeds biased LOW at
-Y0 ~ 0.1315 vs oracle 0.133141, refuted hoisted-table attribution).
+(round 4, ``git show 1858ddd:BASELINE.md``: all seeds biased LOW at Y0 ~ 0.1315 vs
+oracle 0.133141, refuted hoisted-table attribution).
 
 Structural fact this instrument exploits: VG is a Levy process, so the
 uncoupled discretized forward X_N = x0 * exp(sum of N iid exact VG dt-increments

@@ -1,9 +1,8 @@
 #!/usr/bin/env python
 """Weak-scaling measurement of the SPMD data-parallel path on a virtual mesh.
 
-Fixed per-shard batch, 1 -> 8 data shards on XLA-faked CPU devices (the only
-multi-device substrate in this environment — real-ICI numbers still to record
-on multi-chip hardware).  Perfect weak scaling = flat time per epoch as the
+Fixed per-shard batch, 1 -> 8 data shards on XLA-faked CPU devices (for
+real devices use scripts/ici_scaling.py --weak).  Perfect weak scaling = flat time per epoch as the
 global batch grows with the shard count; on a virtual CPU mesh the shards
 share physical cores, so the honest metric reported is global paths*steps/sec
 vs shard count (should grow until the host cores saturate).

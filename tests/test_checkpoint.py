@@ -84,8 +84,8 @@ def test_resume_is_deterministic(tmp_path):
 
 @pytest.mark.full
 def test_resume_is_deterministic_under_mesh(tmp_path):
-    """Resume invariance must also hold on the SPMD path (round 4, VERDICT
-    r3 item 7: resume was certified single-device only): training 3 outer
+    """Resume invariance must also hold on the SPMD path (before round 4
+    resume was certified single-device only): training 3 outer
     epochs straight on an 8-device data mesh equals train-2 / checkpoint /
     restore / resume-for-1 on the same mesh — fit() folds per-epoch keys
     from the epoch index and each shard folds its own batch key from the
@@ -116,3 +116,46 @@ def test_resume_is_deterministic_under_mesh(tmp_path):
     assert res_resumed.y0_history[-1] == pytest.approx(
         res_full.y0_history[-1], rel=1e-6)
     assert tree_allclose(res_full.params, res_resumed.params)
+
+
+def test_restore_keeps_leaf_kinds_and_dtypes(tmp_path):
+    """Python scalars come back as Python scalars, arrays with the
+    example's dtype (bf16 and int32 included), numpy arrays as numpy."""
+    state = {"step": 3, "lr": 0.5, "flag": True,
+             "w": jnp.arange(4, dtype=jnp.bfloat16),
+             "count": jnp.asarray(7, jnp.int32), "host": np.ones(2)}
+    save_checkpoint(str(tmp_path / "ck"), state)
+    back = restore_checkpoint(str(tmp_path / "ck"), state)
+    assert back["step"] == 3 and type(back["step"]) is int
+    assert back["lr"] == 0.5 and type(back["lr"]) is float
+    assert back["flag"] is True
+    assert back["w"].dtype == jnp.bfloat16 and isinstance(back["w"], jax.Array)
+    assert back["count"].dtype == jnp.int32 and int(back["count"]) == 7
+    assert isinstance(back["host"], np.ndarray)
+
+
+def test_restore_rejects_mismatched_example(tmp_path):
+    save_checkpoint(str(tmp_path / "ck"), {"a": jnp.zeros(2)})
+    with pytest.raises(ValueError, match="leaves"):
+        restore_checkpoint(str(tmp_path / "ck"),
+                           {"a": jnp.zeros(2), "b": jnp.zeros(2)})
+
+
+def test_checkpoint_file_holds_arrays_only(tmp_path):
+    """The state file is a plain npz of the flattened leaves: it loads
+    with pickling disabled and holds nothing but arr_<i> entries."""
+    import os
+
+    save_checkpoint(str(tmp_path / "ck"), (jnp.ones(3), jax.random.key(1), 5))
+    path = tmp_path / "ck" / "state.npz"
+    with np.load(path, allow_pickle=False) as data:
+        assert sorted(data.files) == sorted(
+            f"arr_{i}" for i in range(len(data.files)))
+    assert os.listdir(tmp_path / "ck") == ["state.npz"]
+
+
+def test_save_overwrites_previous_checkpoint(tmp_path):
+    path = str(tmp_path / "ck")
+    save_checkpoint(path, {"x": jnp.asarray(1.0)})
+    save_checkpoint(path, {"x": jnp.asarray(2.0)})
+    assert float(restore_checkpoint(path, {"x": jnp.asarray(0.0)})["x"]) == 2.0

@@ -1,13 +1,15 @@
 """Full convergence gates — deselected by default (pyproject addopts
-``-m 'not slow and not tpu'``).  Run explicitly with::
+``-m 'not slow and not device'``).  Run explicitly on the accelerator, in
+ONE process (no xdist: each worker would reserve most of the card's
+memory), with::
 
-    FBSDEJ_TPU_TESTS=1 python -m pytest tests/test_convergence_slow.py \
-        -m slow --no-header -q
+    FBSDEJ_DEVICE_TESTS=1 python -m pytest tests/test_convergence_slow.py \
+        -m slow --no-header -q -p no:xdist
 
 or reproduce the same matrix standalone via scripts/convergence_gates.py.
-``FBSDEJ_TPU_TESTS=1`` keeps the real chip visible (conftest.py otherwise
-forces the virtual CPU mesh): ~3-8 minutes per gate on TPU vs tens of
-minutes on CPU.
+``FBSDEJ_DEVICE_TESTS=1`` keeps the real device visible (conftest.py
+otherwise forces the virtual CPU mesh, where each gate takes tens of
+minutes).
 """
 
 import pytest
@@ -35,7 +37,7 @@ def _run(gate):
         # Robust (3-seed) uncoupled Global gate with warm Y0 start — the
         # round-2 study protocol (5/5 seeds <= 2.2e-4).  The coupled
         # aLin=0.1 configs have an inherent ±(1-3.5)e-3 scheme deviation at
-        # any budget (BASELINE.md round-2 floor analysis) and are
+        # any budget (round-2 floor analysis) and are
         # diagnostics, not hard gates.
         return mod.run_gate(
             "merton_speed",
@@ -53,7 +55,7 @@ def test_merton_speed_gate():
 
 def test_vg_global_uncoupled_gate():
     """VG Global (uncoupled) passes the 1e-3 gate vs the FFT oracle — 5/5
-    seeds in the round-2 study; this re-runs seed 0 (BASELINE.md VG note)."""
+    seeds in the round-2 study; this re-runs seed 0."""
     import sys
 
     sys.path.insert(0, ".")

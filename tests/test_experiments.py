@@ -5,6 +5,7 @@ The reference has no tests; these gate what its main scripts do interactively
 (SURVEY.md §4 rebuild plan).
 """
 
+import csv
 import json
 import os
 
@@ -81,9 +82,11 @@ def test_mfg_poa_pipeline(tmp_path):
     assert len(res.cells) == 1
     cell = res.cells[0]
     assert np.isfinite(cell.poa)
-    df = res.table()
-    assert list(df["pi"]) == [0.1]
-    assert os.path.exists(tmp_path / "poa_table.csv")
+    assert [row["pi"] for row in res.table()] == [0.1]
+    with open(tmp_path / "poa_table.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == 1 and float(rows[0]["pi"]) == 0.1
+    assert float(rows[0]["PoA"]) == pytest.approx(cell.poa)
     assert os.path.exists(tmp_path / "simulations_all_cases.pdf")
 
 
@@ -102,15 +105,16 @@ def test_cli_parser_reference_flags():
 
 
 def test_cli_parser_round2_flags():
-    """Round-2 flags: data-parallel, Y0 readout/init, sweep impl, NaN guard."""
+    """Round-2 flags: data-parallel, Y0 readout/init, speed preset, NaN
+    guard."""
     from deepfbsdejsolvers_tpu.experiments.cli import build_parser
 
     p = build_parser()
     a = p.parse_args(["merton", "--dataParallel", "--y0TailAvg", "6",
-                      "--y0WarmStart", "--sweepImpl", "pallas",
-                      "--debugNans"])
-    assert a.dataParallel and a.y0WarmStart and a.debugNans
-    assert a.y0TailAvg == 6 and a.sweepImpl == "pallas"
+                      "--y0WarmStart", "--fast", "--debugNans"])
+    assert a.dataParallel and a.y0WarmStart and a.debugNans and a.fast
+    assert a.y0TailAvg == 6
+    assert not hasattr(a, "sweepImpl")
     a = p.parse_args(["mfg-compare", "--dataParallel"])
     assert a.dataParallel
 
@@ -118,7 +122,7 @@ def test_cli_parser_round2_flags():
 @pytest.mark.full
 def test_mfg_poa_pipeline_data_parallel(tmp_path):
     """End-to-end mfg-poa --dataParallel on the virtual 8-device mesh
-    (round 4, VERDICT r3 item 7): the full pipeline — coupled training,
+    (round 4): the full pipeline — coupled training,
     frozen-trajectory replay, PoA table — through the shard_map DP path."""
     cfg = MFGPoAConfig(
         n_epoch_ext=1, n_epoch=2, batch_size=16, nb_days=1,
@@ -144,3 +148,42 @@ def test_cli_help_renders(sub):
     with pytest.raises(SystemExit) as exc:
         build_parser().parse_args([sub, "--help"])
     assert exc.value.code == 0
+
+
+def _poa_result():
+    from deepfbsdejsolvers_tpu.experiments.mfg_poa import PoACell, PoARunResult
+
+    cells = [PoACell(case=c, pi=pi, poa=1.0 + pi, mfg_cost=2.0, mfg_ci=0.1,
+                     mfc_cost=1.5, mfc_ci=0.05, evaluators={})
+             for c, pi in (("no jumps", 0.1), ("with jumps", 0.5))]
+    return PoARunResult(cells=cells)
+
+
+def test_poa_table_csv_roundtrip(tmp_path):
+    from deepfbsdejsolvers_tpu.experiments.mfg_poa import TABLE_COLUMNS
+
+    res = _poa_result()
+    res.write_csv(str(tmp_path / "t.csv"))
+    with open(tmp_path / "t.csv", newline="") as f:
+        reader = csv.DictReader(f)
+        assert tuple(reader.fieldnames) == TABLE_COLUMNS
+        rows = list(reader)
+    assert [r["case"] for r in rows] == ["no jumps", "with jumps"]
+    assert [float(r["PoA"]) for r in rows] == [1.1, 1.5]
+
+
+def test_poa_table_text_is_aligned():
+    lines = _poa_result().to_text().splitlines()
+    assert len(lines) == 3 and lines[0].split()[0] == "case"
+    assert len({len(line) for line in lines}) == 1   # right-aligned columns
+    assert "with jumps" in lines[2] and "1.5" in lines[2]
+
+
+def test_save_plots_without_matplotlib_fails_clearly(monkeypatch):
+    import sys
+
+    from deepfbsdejsolvers_tpu.experiments.plots import pyplot
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="needs matplotlib"):
+        pyplot()

@@ -1,6 +1,6 @@
-"""Tests for the TPU speed paths: table pricer, icdf Poisson sampler,
+"""Tests for the speed paths: table pricer, icdf Poisson sampler,
 reduced quadrature, bfloat16 compute.  Each fast path must agree with its
-reference-parity twin to well inside the 1e-3 Y0 gate (BASELINE.md)."""
+reference-parity twin to well inside the 1e-3 Y0 gate."""
 
 import dataclasses
 import math
@@ -260,8 +260,8 @@ def test_piecewise2d_interp_accuracy():
 
 @pytest.mark.full  # hoist_gamma is a measured-slower opt-in instrument
 def test_hoist_gamma_tables_built_and_toggle(rng_key):
-    """hoist_gamma=True (opt-in: measured slower than the in-scan Γ head on
-    TPU, see the PricingSolver field note) builds the per-step 2-D Γ tables
+    """hoist_gamma=True (opt-in: measured slower than the in-scan Γ head,
+    see the PricingSolver field note) builds the per-step 2-D Γ tables
     ("gc", "jlo", "jhi") for gam-net schemes and removes the in-scan Γ-MLP;
     the default leaves them off.  The loss equality with the direct path is
     covered by test_hoisted_loss_matches_inscan (whose hoist leg opts in)."""
@@ -290,8 +290,8 @@ def test_hoist_gamma_tables_built_and_toggle(rng_key):
 
 
 # quick keeps ONE representative (the shipped piecewise-global config);
-# the full equality matrix runs in the default/full tier (VERDICT r4
-# item 7: equality tests don't need to dominate the fast CI tier).
+# the full equality matrix runs in the default/full tier (equality tests
+# don't need to dominate the fast CI tier).
 @pytest.mark.parametrize("scheme,interp", [
     pytest.param("global", "piecewise"),
     pytest.param("global", "clenshaw", marks=pytest.mark.full),
@@ -368,15 +368,15 @@ def test_mfg_scan_chunk_matches_flat_scan(rng_key, scheme, chunk):
     """MFG twin of the scan-chunk equality test: the chunked MFG training
     scan (shipped speed default scan_chunk=16 for the N=96 system — bench.py
     --model mfg) computes the same math as the flat scan at fixed params.
-    Exact on CPU; on TPU only XLA's cross-step fusion reassociation differs
-    (observed ~1e-7 rel on the loss)."""
+    Exact on CPU; on an accelerator only XLA's cross-step fusion
+    reassociation differs (observed ~1e-7 rel on the loss)."""
     import dataclasses
 
     from deepfbsdejsolvers_tpu.models.mfg_smart_grid import make_mfg_default
     from deepfbsdejsolvers_tpu.solvers.mfg import MFGSolver
 
     # 1-day profile (N=48, still divisible by the shipped chunk=16):
-    # equality doesn't need the production N=96 scan — VERDICT r4 item 7.
+    # equality doesn't need the production N=96 scan.
     m = dataclasses.replace(make_mfg_default(nb_days=1), jump_sampler="icdf")
     vals, grads = {}, {}
     for tag, k in (("flat", 0), ("chunk", chunk)):
@@ -397,7 +397,8 @@ def test_mfg_scan_chunk_matches_flat_scan(rng_key, scheme, chunk):
 @pytest.mark.parametrize("scheme", ["global", "multistep", "sumlocal"])
 def test_mfg_fused_heads_match_split(rng_key, scheme):
     """Block-diagonal head fusion (MFGSolver(fuse_heads=True), opt-in —
-    measured slower on TPU, see BASELINE.md) computes the same pair loss as
+    measured slower, see the MFGSolver field note) computes the same pair
+    loss as
     the split heads: block-diag weights make the two MLPs independent, so
     losses are bit-exact and grads differ only by backward dot order."""
     import dataclasses
@@ -451,7 +452,7 @@ def test_hoist_clamp_fractions_stay_negligible():
     built from the EXACT uncoupled marginals of the same pre-drawn noise,
     so only the accumulated coupling drift can escape them — this pins that
     the O(aLin*dt) argument holds, with a diagnostic anyone can rerun on a
-    new parameterization (VERDICT r3 weak #5; jump law:
+    new parameterization (jump law:
     pricingModels.py:57-61)."""
     import dataclasses
 

@@ -1,7 +1,7 @@
-"""Smoke tier of the hardware accuracy-gate matrix (VERDICT r3 weak #6).
+"""Smoke tier of the hardware accuracy-gate matrix.
 
-The full matrix (scripts/convergence_gates.py, the BASELINE.md accuracy
-tables) runs by hand on the chip; before round 4 CI covered only 2 of its
+The full matrix (scripts/convergence_gates.py) runs by hand on the
+accelerator; before round 4 CI covered only 2 of its
 configs, so a regression in e.g. the sumlocal hoist path's tables would
 ship silently.  This tier trains EVERY registry entry end-to-end at a
 tiny budget (300 cosine-decayed Adam steps, batch 256) and asserts the
@@ -10,7 +10,7 @@ real 1e-3 gates, tight enough to catch a broken code path, a diverging
 loss, or a mis-built table, loose enough to be seed-stable on CPU.
 
 Budget-only overrides: the config keys (model, scheme, compensator,
-hoist/fused knobs) are exactly the shipped gate configs, loaded from the
+hoist knobs) are exactly the shipped gate configs, loaded from the
 same registry the chip runs — no drift between CI and the hardware
 matrix.  The two finest-grid gates (N=1600/960 scans) additionally trim
 the step count to keep the CPU wall-clock bounded.
@@ -48,7 +48,7 @@ def registry(cg):
 # Static so collection stays cheap (build_registry constructs the VG FFT
 # tables on host); test_gate_names_match pins it against the live registry.
 GATE_NAMES = [
-    "merton_speed", "merton_speed_fused", "merton_speed_mc",
+    "merton_speed", "merton_speed_mc",
     "merton_multistep_diag", "merton_coupled_diag", "merton_coupled_direct",
     "vg_coupled_direct", "merton_direct", "merton_cheb", "merton_global",
     "vg_direct", "vg_speed", "vg_half_coupling",

@@ -27,7 +27,7 @@ def small_model(**kw):
 def tiny_model(**kw):
     """N=12 truncation of the 1-day model (same dt, first quarter of the
     profile): the scan-compile-bound solver/replay tests exercise structure,
-    not the full 47-step day — VERDICT r4 item 7 tier budget."""
+    not the full 47-step day (test-tier budget)."""
     m = small_model(**kw)
     return dataclasses.replace(
         m, T=12.0 * m.dt, q_aver=np.asarray(m.q_aver, np.float64)[:13])
@@ -223,9 +223,9 @@ def test_icdf_sampler_matches_exact_across_intensities(rng_key):
 def test_warm_start_y0_lands_in_consensus_band(rng_key):
     """The Global scheme's warm-started (Y0_hat, Y0) must start within ~10%
     of the four-method cross-agreement band of the FULL comparison config
-    (BASELINE.md mfg-compare: -44.8 .. -47.5) — the failure the warm start
+    (round-4 mfg-compare: -44.8 .. -47.5) — the failure the warm start
     exists to fix is the Glorot scalars' ~0 init being unreachable-from at
-    the reference budget (VERDICT r3 item 1; MFGSolvers.py:28-29)."""
+    the reference budget (MFGSolvers.py:28-29)."""
     model = make_mfg_default()  # the 2-day comparison-config model
     solver = MFGSolver(model, "global")
     params = solver.init_params(rng_key)

@@ -2,7 +2,7 @@
 
 With f0 = f1 = 0 the smart-grid FBSDE (MFGModel.py:83-98) is linear, so
 Y0_hat / Y0 are exactly computable — the first independent MFG accuracy
-truth in the framework (VERDICT r4 item 2).  These tests validate the
+truth in the framework.  These tests validate the
 oracle against the MODEL'S OWN control/dynamics code (not a re-derivation):
 with zero noise every recursion is affine, so a zero-noise rollout through
 ``SmartGridMFGModel.step`` / ``calpha_hat`` / ``calpha`` IS the mean

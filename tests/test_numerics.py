@@ -1,10 +1,9 @@
 """ops/numerics: the bias-free multiplicative-walk update.
 
-The module exists because TPU's VPU f32 exp is approximate (mean relative
-defect ~ -2.6e-6 near 0, measured round 4 — see ops/numerics.py docstring).
-CPU f32 exp is correctly rounded, so these tests pin the *polynomial's own*
-accuracy/bias floor and the API contract; the hardware A/B lives in
-BASELINE.md (walk-compounded defect <= 1.4e-6 across all shipped laws).
+The module exists because a device's f32 exp can be biased near 0, and the
+bias compounds over a multiplicative walk (ops/numerics.py docstring).  CPU
+f32 exp is correctly rounded, so these tests pin the *polynomial's own*
+accuracy/bias floor and the API contract.
 """
 
 import jax
@@ -31,8 +30,7 @@ def test_expm1_acc_pointwise_vs_f64():
 
 def test_expm1_acc_unbiased_under_increment_laws():
     """Mean factor defect under the shipped increment laws — the quantity
-    that compounds N-fold in the walk — stays at the e-8 rounding floor
-    (the VPU exp it replaces carries -2.6e-6)."""
+    that compounds N-fold in the walk — stays at the e-8 rounding floor."""
     rng = np.random.default_rng(0)
     b = 1 << 20
     for n, law in [(240, "vg"), (1600, "merton")]:

@@ -1,8 +1,8 @@
 """Multi-chip SPMD tests on the 8-device virtual CPU mesh (SURVEY.md §4:
 "run the same seed on 1 chip vs k chips and assert equality of the psum'd
-gradients" — the TPU-world substitute for a fake NCCL backend)."""
+gradients" — the substitute for a fake NCCL backend)."""
 
-# Tier split (VERDICT r4 item 7): the fast ``quick`` tier keeps a small
+# Tier split: the fast ``quick`` tier keeps a small
 # representative DP set (device availability, loss==serial-mean, the
 # update/epoch path, one MFG mesh fit); the exhaustive equality matrix —
 # gradient equality, per-config hoist/chebyshev/VG twins, the 2-D
@@ -30,11 +30,11 @@ from deepfbsdejsolvers_tpu.solvers.train import make_adam
 
 SMALL_QUAD = CompensatorSpec(kind="quadrature", n_poisson_max=3, n_hermite=4)
 
-# Under FBSDEJ_TPU_TESTS=1 (conftest.py) the real single chip is visible and
-# the virtual 8-CPU mesh is not provisioned — the SPMD tests need it.
+# Under FBSDEJ_DEVICE_TESTS=1 (conftest.py) the real accelerator is visible
+# and the virtual 8-CPU mesh is not provisioned — the SPMD tests need it.
 pytestmark = pytest.mark.skipif(
     jax.device_count() < 8,
-    reason="needs the 8-device virtual CPU mesh (unset FBSDEJ_TPU_TESTS)")
+    reason="needs the 8-device virtual CPU mesh (unset FBSDEJ_DEVICE_TESTS)")
 
 
 def tiny_model(n=4):
@@ -150,8 +150,7 @@ def test_graft_entry_dryrun():
 @pytest.mark.full
 def test_dp_fit_equals_serial_fit_of_mesh_mean(rng_key):
     """The production DP path (fit(mesh=...)) == single-device fit of the
-    mesh-mean loss: same keys, same Adam, identical final params (VERDICT r1
-    item 2)."""
+    mesh-mean loss: same keys, same Adam, identical final params."""
     from deepfbsdejsolvers_tpu.solvers.train import fit
 
     solver = PricingSolver(tiny_model(), "global", hidden=(8, 8),
@@ -267,7 +266,7 @@ def test_dp_with_hoisted_piecewise_tables(rng_key):
 def test_vg_dp_loss_and_grads_match_serial(rng_key):
     """VG (pure-jump) speed config under shard_map: mesh loss == serial mean
     of per-shard losses, grads finite — the VG twin of the Merton DP tests
-    (round 4: MULTICHIP certification beyond Merton, VERDICT r3 weak #4)."""
+    (round 4: multi-device certification beyond Merton)."""
     import dataclasses
 
     from deepfbsdejsolvers_tpu.models.variance_gamma import make_vg_default

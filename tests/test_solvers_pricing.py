@@ -109,8 +109,8 @@ def test_net_wiring_matches_reference():
 @pytest.mark.full
 def test_chunked_mc_sweep_matches_unchunked(rng_key):
     """Node-axis chunking of the MC compensator sweep (node_block) must
-    reproduce the unchunked loss and gradients exactly (VERDICT r1 item 4:
-    reference-exact [n_mc, B] semantics at the headline batch)."""
+    reproduce the unchunked loss and gradients exactly (reference-exact
+    [n_mc, B] semantics at the headline batch)."""
     model = tiny_merton()
     base = PricingSolver(model, "global", hidden=(8, 8),
                          compensator=CompensatorSpec(kind="mc", n_mc=48,
